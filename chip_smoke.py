@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's two main paths once on one CUDA card.
 
     python3 chip_smoke.py
 
-The main path is the scoring stage, contig FASTA → ``node_scores.out``:
+The first main path is the scoring stage, contig FASTA → ``node_scores.out``:
 2-bit packed contigs → transition-count features (kernel K1) → the GCN
 scorer at its published width (``GCNConfig()``), whose SAGE rounds (K2)
 and conv head (K3) are CUDA kernels, with the large products in cuBLAS.
@@ -26,7 +26,23 @@ Phases, each of which must pass:
    the CPU;
 5. where the time goes: the host's packing time for a batch, and device
    time by kernel over 4 batches from torch.profiler;
-6. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
+6. the eref world of ``benchmarks/phaseb_scale.py:51-83``, replayed call
+   for call: 5,000 references of 5-300 kb (357.8 Mbp, seed 7) and 200,000
+   reads of 150 bp tiled from the first 100; the port's index build;
+7. the eref slice, the second main path: Phase A (``count_reads_into_table``,
+   k = 32, a 4 GiB count table) and Phase B (``search_references``) with
+   the launch counters reset just before and read just after; every hit
+   a planted reference, and as many hits as the JAX package reported on
+   this world (``benchmarks/phaseb_5kref.json``);
+8. K4 at the main path's shapes: the counts and hashes of real Phase B
+   chunks (the first of each length bucket, and one with pad rows), equal
+   to its plain version, with its time, its bound and the plain time;
+9. where the time goes: Phase A's host reader apart from its update on the
+   card; Phase B's device time by step and by kernel over a few chunks
+   (torch.profiler), and its wall time per chunk;
+10. the eref slice on a small world (k = 20) through ``run_search`` on the
+   card and on the CPU: byte-identical ``ref_names.txt``;
+11. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -35,6 +51,7 @@ from __future__ import annotations
 
 import json
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -50,6 +67,19 @@ N_CONTIGS = 16 * BATCH
 PROB_ATOL = 2e-4        # float32 probabilities, kernels against plain versions
 PROB_ATOL_BF16 = 2e-2   # bfloat16 probabilities (inputs and weights rounded to 8 bits)
 
+# the eref world of benchmarks/phaseb_scale.py:51-83 and its k
+EREF_SEED = 7
+EREF_REFS = 5000
+EREF_READS = 200_000
+EREF_READ_LEN = 150
+EREF_LEN_RANGE = (5_000, 300_000)
+EREF_K = 32
+#: hits the JAX package reported on this world (benchmarks/phaseb_5kref.json
+#: "n_hits"); every step is integer work, so an exact port reports as many
+EREF_JAX_HITS = 67
+SMALL_K = 20            # the small world run on the card and on the CPU
+PROFILE_CHUNKS = 4      # Phase B chunks under the profiler
+
 # H100 SXM, dense, at its 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
@@ -61,7 +91,10 @@ KERNELS = {  # name → (CUDA source, the Pallas call it replaces)
                     "palace_tpu/ops/pallas_kernels.py:462"),
     "conv_head": ("palace_tpu_torch/csrc/conv_head.cu",
                   "palace_tpu/ops/pallas_kernels.py:324"),
+    "good_windows": ("palace_tpu_torch/csrc/good_windows.cu",
+                     "palace_tpu/ops/pallas_kernels.py:252"),
 }
+SCORING_KERNELS = ("transition_counts", "sage_rounds", "conv_head")
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.float16: "float16"}
 
 
@@ -124,6 +157,60 @@ def make_contigs(n: int, length: int, seed: int, gc_spread: bool = False) -> lis
         base = rng.integers(0, 4, size=(n, length), dtype=np.int8)
     lut = np.frombuffer(b"ACGT", dtype=np.uint8)
     return [(f"contig_{i}", bytes(lut[row]).decode()) for i, row in enumerate(base)]
+
+
+def make_eref_world(tmp: Path, n_refs: int, n_reads: int, len_range: tuple | None = None):
+    """The phagedb and reads of benchmarks/phaseb_scale.py:51-83, with the
+    same ``default_rng(EREF_SEED)`` draws in the same order: log-uniform
+    reference lengths in ``len_range`` (EREF_LEN_RANGE when unset),
+    uniform bases, then ``n_reads`` reads of EREF_READ_LEN bp tiled from
+    the first ``n_refs // 50`` references, taken in the order of their
+    sorted names.  Returns (db.fasta, reads.fastq, planted reference
+    count)."""
+    len_range = EREF_LEN_RANGE if len_range is None else len_range
+    read_len = EREF_READ_LEN
+    rng = np.random.default_rng(EREF_SEED)
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    lengths = np.exp(rng.uniform(np.log(len_range[0]), np.log(len_range[1]),
+                                 n_refs)).astype(np.int64)
+    n_plantable = max(1, n_refs // 50)
+    db, seqs = tmp / "db.fasta", {}
+    with open(db, "w") as fh:
+        for i, L in enumerate(lengths):
+            seq = bytes(lut[rng.integers(0, 4, int(L), dtype=np.uint8)]).decode()
+            fh.write(f">ref{i + 1}\n" + seq + "\n")
+            if i < n_plantable:
+                seqs[f"ref{i + 1}"] = seq
+    planted = rng.integers(0, n_plantable, n_reads)
+    want = {f"ref{i + 1}" for i in set(int(x) for x in planted)}
+    keys = sorted(k for k in seqs if k in want)
+    fq = tmp / "reads.fastq"
+    with open(fq, "w") as f:
+        for i in range(n_reads):
+            s = seqs[keys[i % len(keys)]]
+            st = int(rng.integers(0, max(1, len(s) - read_len)))
+            f.write(f"@r{i}\n{s[st:st + read_len]}\n+\n{'I' * read_len}\n")
+    return db, fq, len(want)
+
+
+def make_small_eref_world(tmp: Path, seed: int = SEED):
+    """40 random references of 3-20 kb; paired reads of 100 bp tiled three
+    times (offsets 0, 3, 7, every 10 bp) from references 3, 10 and 31."""
+    from palace_tpu_torch.io.fasta import reverse_complement, write_fasta
+
+    rng = np.random.default_rng(seed)
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    refs = [(f"phage{i + 1}", bytes(lut[rng.integers(0, 4, int(n))]).decode())
+            for i, n in enumerate(rng.integers(3000, 20000, 40))]
+    write_fasta(tmp / "small_db.fasta", refs)
+    reads = [refs[r][1][off + i: off + i + 100] for r in (2, 9, 30) for off in (0, 3, 7)
+             for i in range(0, len(refs[r][1]) - off - 100, 10)]
+    for name, rs in (("small_1.fastq", reads),
+                     ("small_2.fastq", [reverse_complement(r) for r in reads])):
+        with open(tmp / name, "w") as fh:
+            for i, r in enumerate(rs):
+                fh.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
+    return tmp / "small_db.fasta", tmp / "small_1.fastq", tmp / "small_2.fastq"
 
 
 class Smoke:
@@ -270,7 +357,7 @@ class Smoke:
             f"peak memory {peak / 2**30:.2f} GiB, launches {launches}")
         self.records["slice"] = dict(contigs_per_s=len(scores) / secs, seconds=secs,
                                      peak_bytes=peak, launches=launches)
-        for name in KERNELS:
+        for name in SCORING_KERNELS:
             self.check(launches[name] > 0, f"main path launched {name} ({launches[name]} times)")
         probs = np.array([p for _, p in scores])
         self.check([n for n, _ in scores] == [n for n, _ in contigs]
@@ -357,6 +444,261 @@ class Smoke:
                    f"max |dp| {err:.3g} <= {PROB_ATOL}, spread {np.ptp(want):.3f}")
         self.records["cpu_err_float32"] = err
 
+    # -- phases 6-10: the eref slice ----------------------------------------
+    def eref_world(self, tmp: Path):
+        from palace_tpu_torch.search.index import build_index
+
+        t0 = time.perf_counter()
+        db, fq, n_planted = make_eref_world(tmp, EREF_REFS, EREF_READS)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index = build_index(db, k=EREF_K, save=False)
+        build_s = time.perf_counter() - t0
+        total = int(index.lengths.sum())
+        say(f"  world: {index.n_refs} refs of {int(index.lengths.min())}-"
+            f"{int(index.lengths.max())} bp, {total} bp, {EREF_READS} reads of "
+            f"{EREF_READ_LEN} bp from {n_planted} planted refs (made in {gen_s:.1f} s)")
+        say(f"  host index build: {build_s:.3f} s, {total / build_s / 1e6:.2f} Mbp/s, "
+            f"{index.packed.nbytes + index.maskbits.nbytes} bytes packed")
+        self.records["eref_index"] = dict(build_s=build_s, total_bp=total)
+        return index, fq, n_planted
+
+    def eref_slice(self, world):
+        """The second main path: Phase A and Phase B on the card, counters
+        reset just before and read just after."""
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.search.eref import (
+            count_reads_into_table,
+            plan_chunks,
+            search_references,
+        )
+
+        index, fq, n_planted = world
+        params = KmerParams(k=EREF_K)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        table = count_reads_into_table([fq], index, params, device=self.dev)
+        torch.cuda.synchronize()
+        a_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hits = search_references(table, index, params)
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        chunks = plan_chunks(index)
+        n_chunks = len(chunks)
+        total = int(index.lengths.sum())
+        say(f"  Phase A: {EREF_READS} reads in {a_s:.3f} s, {EREF_READS / a_s:.1f} reads/s "
+            f"(table of 2^{EREF_K} bytes)")
+        say(f"  Phase B: {total} positions in {n_chunks} chunks, {b_s:.3f} s, "
+            f"{total / b_s / 1e6:.2f} Mpos/s; peak memory {peak / 2**30:.2f} GiB; "
+            f"launches {launches}")
+        scanned = sum(rows * target for target, _, rows in chunks)
+        k4_bound, _ = bound(scanned * (3 + 24) + scanned // 8, 12.0 * scanned, torch.float32)
+        say(f"  K4's bound over this Phase B: {scanned} positions scanned (buckets and pad "
+            f"rows included), {k4_bound:.4f} ms (bytes)")
+        self.records["eref"] = dict(phase_a_s=a_s, phase_b_s=b_s, peak_bytes=peak,
+                                    n_chunks=n_chunks, launches=launches, n_hits=len(hits))
+        self.check(launches["good_windows"] == n_chunks and n_chunks > 0,
+                   f"eref main path launched good_windows once a chunk "
+                   f"({launches['good_windows']} launches, {n_chunks} chunks)")
+        n_plantable = max(1, EREF_REFS // 50)
+        self.check(len(hits) > 0 and all(1 <= h.ref_index <= n_plantable for h in hits),
+                   f"{len(hits)} hits, every one a planted reference (ref_index 1..{n_plantable})")
+        self.check(len(hits) == EREF_JAX_HITS,
+                   f"{len(hits)} hits on the card, {EREF_JAX_HITS} from the JAX package "
+                   f"on the same world (benchmarks/phaseb_5kref.json)")
+        for _ in range(2):  # the spread of Phase B
+            t0 = time.perf_counter()
+            again = search_references(table, index, params)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            say(f"  Phase B repeat: {secs:.3f} s, {total / secs / 1e6:.2f} Mpos/s, "
+                f"same hits: {[h.line() for h in again] == [h.line() for h in hits]}")
+        return table
+
+    def phase_a_split(self, world):
+        """Phase A's host and device parts apart: the FASTQ reader and packer
+        on the host clock, one batch's update of a fresh table on the card."""
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.ops.count_table import CountTable
+        from palace_tpu_torch.ops.kmer import pack_codes_mask
+        from palace_tpu_torch.search.eref import (
+            ROW_LEN,
+            compute_downsample_ratio,
+            read_batch_size,
+            read_code_batches,
+        )
+
+        index, fq, _ = world
+        params = KmerParams(k=EREF_K)
+        t0 = time.perf_counter()
+        ratio = compute_downsample_ratio(fq, params.down_sampling_size)
+        ratio_s = time.perf_counter() - t0
+        batch = read_batch_size(self.dev)
+        t0 = time.perf_counter()
+        packs = [pack_codes_mask(c) for c in read_code_batches(fq, batch, ROW_LEN, ratio, EREF_K)]
+        read_s = time.perf_counter() - t0
+        packed, mask = (torch.from_numpy(a).to(self.dev) for a in packs[0])
+        scratch = CountTable.create(EREF_K, device=self.dev)
+        ms = cuda_ms(lambda: scratch.add_packed(packed, mask, index.perm, EREF_K), 3, warmup=1)
+        del scratch
+        say(f"  host: down-sampling ratio {ratio_s:.3f} s, reading and packing {len(packs)} "
+            f"batches of {batch} rows {read_s:.3f} s; card: {ms:.3f} ms a batch update "
+            f"({len(packs) * ms / 1e3:.3f} s for all)")
+        self.records["phase_a_split"] = dict(ratio_s=ratio_s, read_s=read_s, batch_ms=ms,
+                                             batches=len(packs))
+
+    def k4_at_main_shapes(self, world, table):
+        """K4 on the counts and hashes of real Phase B chunks: the first
+        chunk of each length bucket, and a chunk with pad rows."""
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.ops.window import window_thresholds
+        from palace_tpu_torch.search.eref import DeviceDB, chunk_inputs, plan_chunks
+
+        index = world[0]
+        params = KmerParams(k=EREF_K)
+        one_min, three_min = window_thresholds(params.window, params.hit_ratio,
+                                               params.perfect_hit_ratio)
+        chunks = plan_chunks(index)
+        picked, seen = [], set()
+        for c in chunks:
+            if c[0] not in seen:
+                seen.add(c[0])
+                picked.append(c)
+        if not any(len(refs) < rows for _, refs, rows in picked):
+            picked += [c for c in chunks if len(c[1]) < c[2]][:1]
+        self.check(any(len(refs) < rows for _, refs, rows in picked),
+                   "the checked chunks include one with pad rows")
+        db = DeviceDB(index, self.dev)
+        tot = dict(ms=0.0, plain_ms=0.0, bound=0.0, positions=0, err=0)
+        for target, refs, rows in picked:
+            counts, hashes = chunk_inputs(db, table, target, refs, rows)
+
+            def k4():
+                return kernels.good_windows(counts, hashes, params.window, one_min, three_min)
+
+            def plain():
+                return kernels.good_windows_plain(counts, hashes, params.window, one_min,
+                                                  three_min)
+
+            got, want = k4(), plain()
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            self.check(torch.equal(got, want),
+                       f"K4 good_windows equals its plain version on a chunk of {len(refs)} "
+                       f"refs + {rows - len(refs)} pad rows × {target} positions")
+            ms, plain_ms = cuda_ms(k4, 20), cuda_ms(plain, 3)
+            # bytes: counts and hashes read once, the bits written once; the
+            # integer work (about 12 operations a position) is counted at the
+            # float32 CUDA-core rate, the data sheet having no int32 rate
+            b, _ = bound(nbytes(counts, hashes, got), 12.0 * counts.shape[0] * target,
+                         torch.float32)
+            say(f"    chunk {rows:4d} × {target:7d}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"bound {b:.4f} ms")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bound"] += b
+            tot["positions"] += rows * target
+            tot["err"] = max(tot["err"], err)
+            del counts, hashes, got, want
+        say(f"  K4 over {len(picked)} chunks, {tot['positions']} positions: kernel "
+            f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound {tot['bound']:.4f} ms "
+            f"(bytes)")
+        self.records["good_windows"] = dict(
+            dtype="uint8 counts, int64 hashes", max_abs_err=float(tot["err"]), ms=tot["ms"],
+            plain_ms=tot["plain_ms"], bound=(tot["bound"], "bytes"), library_ms=None,
+            chunks=len(picked))
+
+    def phase_b_profile(self, world, table):
+        """Device time by step (the port's profiler spans) and by kernel over
+        a few full Phase B chunks, and the host's time per chunk."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.ops.window import window_thresholds
+        from palace_tpu_torch.search.eref import DeviceDB, chunk_inputs, plan_chunks
+
+        index = world[0]
+        params = KmerParams(k=EREF_K)
+        one_min, three_min = window_thresholds(params.window, params.hit_ratio,
+                                               params.perfect_hit_ratio)
+        chunks = sorted(plan_chunks(index), key=lambda c: -c[2] * c[0])[:PROFILE_CHUNKS]
+        db = DeviceDB(index, self.dev)
+
+        def run():
+            bits = []
+            for target, refs, rows in chunks:
+                counts, hashes = chunk_inputs(db, table, target, refs, rows)
+                with record_function("eref.good_windows"):
+                    bits.append(kernels.good_windows(counts, hashes, params.window, one_min,
+                                                     three_min))
+            return [b.cpu() for b in bits]
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        positions = sum(rows * target for target, _, rows in chunks)
+        say(f"  {len(chunks)} chunks, {positions} positions: wall {wall_ms:.2f} ms unprofiled, "
+            f"{wall_ms / len(chunks):.2f} ms a chunk")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        spans, kernels_ms = {}, {}
+        for e in prof.key_averages():
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "cuda_time_total", 0.0)
+            if e.key.startswith("eref."):
+                spans[e.key] = dev_us / 1e3
+        for e in prof.events():
+            # the spans also show on the device's timeline: count kernels only
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("eref."):
+                ms, calls = kernels_ms.get(e.name, (0.0, 0))
+                kernels_ms[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+        if not kernels_ms:
+            say("  device time: not measured (the profiler saw no device events)")
+            return
+        busy = sum(ms for ms, _ in kernels_ms.values())
+        say(f"  device busy {busy:.2f} ms over {len(chunks)} chunks "
+            f"({busy / len(chunks):.3f} ms a chunk); by step (device ms a chunk):")
+        for name in ("eref.gather", "eref.hash", "eref.lookup", "eref.good_windows"):
+            say(f"    {spans.get(name, 0.0) / len(chunks):9.3f}  {name}")
+        say("  by kernel (ms a chunk, calls):")
+        for name, (ms, calls) in sorted(kernels_ms.items(), key=lambda kv: -kv[1][0])[:12]:
+            say(f"    {ms / len(chunks):9.3f}  {calls:5d}  {name[:90]}")
+        self.records["phase_b_profile"] = dict(spans=spans, busy_ms=busy, chunks=len(chunks),
+                                               wall_ms=wall_ms)
+
+    def eref_against_cpu(self, tmp: Path):
+        """``run_search`` on a small world (k = 20) on the card and on the
+        CPU's plain path: byte-identical ``ref_names.txt``."""
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.search.eref import run_search
+        from palace_tpu_torch.search.index import build_index
+
+        db, fq1, fq2 = make_small_eref_world(tmp)
+        index = build_index(db, k=SMALL_K, save=False)
+        params = KmerParams(k=SMALL_K)
+        outs = {}
+        for dev in (self.dev, torch.device("cpu")):
+            out = tmp / f"ref_names.{dev.type}.txt"
+            hits = run_search(fq1, fq2, index, params, out, device=dev)
+            outs[dev.type] = (out.read_bytes(), len(hits))
+        (card, n), (cpu, _) = outs[self.dev.type], outs["cpu"]
+        say("  " + card.decode().replace("\n", "\n  ").rstrip())
+        self.check(card == cpu and n > 0,
+                   f"small world (k={SMALL_K}, {index.n_refs} refs): {n} hits, ref_names.txt "
+                   f"on the card byte-identical to the CPU's")
+
 
 def run_phases(smoke: Smoke) -> None:
     """Phases 3 and 4 on ``smoke.dev``."""
@@ -370,6 +712,21 @@ def run_phases(smoke: Smoke) -> None:
         smoke.phase("slice", smoke.slice, params, contigs)
         smoke.phase("where the time goes", smoke.where_the_time_goes, params, contigs)
         smoke.phase("slice against the plain versions", smoke.slice_against_plain, params)
+
+
+def run_eref_phases(smoke: Smoke) -> None:
+    """Phases 6-10 on ``smoke.dev``, in a temporary directory."""
+    with torch.inference_mode(), tempfile.TemporaryDirectory() as tmp:
+        world = smoke.phase("eref world", smoke.eref_world, Path(tmp))
+        table = world and smoke.phase("eref slice", smoke.eref_slice, world)
+        if table:
+            smoke.phase("K4 at the main path's shapes", smoke.k4_at_main_shapes, world, table)
+            smoke.phase("where Phase A's time goes", smoke.phase_a_split, world)
+            smoke.phase("where Phase B's time goes", smoke.phase_b_profile, world, table)
+        del table
+        if smoke.dev.type == "cuda":
+            torch.cuda.empty_cache()
+        smoke.phase("eref slice against the CPU", smoke.eref_against_cpu, Path(tmp))
 
 
 def main() -> int:
@@ -404,10 +761,13 @@ def main() -> int:
     smoke.phase("build", smoke.build)
     if not smoke.failures:
         run_phases(smoke)
+        run_eref_phases(smoke)
     if smoke.failures:
         say("FAILED: " + "; ".join(smoke.failures))
         return 1
-    launches = smoke.records["slice"]["launches"]
+    # each kernel's launches on its own main path
+    launches = dict(smoke.records["slice"]["launches"],
+                    good_windows=smoke.records["eref"]["launches"]["good_windows"])
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rec = smoke.records[name]

@@ -2,15 +2,18 @@
 
 The JAX package ``palace_tpu`` stays the reference; this package is a
 second implementation of its contig-scoring stage (contig FASTA →
-``node_scores.out``) in PyTorch, with hand-written CUDA kernels for
-``sm_90a`` in place of the Pallas TPU kernels:
+``node_scores.out``) and its eref k-mer reference search (reads +
+phagedb → ``ref_names.txt``) in PyTorch, with hand-written CUDA kernels
+for ``sm_90a`` in place of the Pallas TPU kernels:
 
 * ``palace_tpu_torch.ops``    — host 2-bit packer, the transition-count
-  encoder, and ``ops.kernels``: the three CUDA kernels (transition
-  counts, SAGE rounds, conv head), each beside its plain PyTorch version.
+  encoder, k-mer hashing, the count table, the window scan, and
+  ``ops.kernels``: the four CUDA kernels (transition counts, SAGE rounds,
+  conv head, good windows), each beside its plain PyTorch version.
 * ``palace_tpu_torch.models`` — the GCN scorer (eval forward) and the
   scoring stage.
-* ``palace_tpu_torch.io``     — FASTA reading and writing.
+* ``palace_tpu_torch.search`` — the phage index and the eref stage.
+* ``palace_tpu_torch.io``     — FASTA/FASTQ reading and writing.
 
 It imports neither JAX nor ``palace_tpu``.  Entry points run on the
 CUDA device unless the caller passes ``device="cpu"``; without a card

@@ -2,9 +2,15 @@
 
     python -m palace_tpu_torch score <contigs.fasta> <out> [--model PT]
         [--batch N] [--dtype float32|bfloat16|float16] [--device cuda|cpu]
+    python -m palace_tpu_torch eref <fq1> <fq2> <phagedb> <out> [--k K]
+        [--hit-ratio R] [--perfect-hit-ratio R] [--device cuda|cpu]
 
 ``score`` is the reference's phage_scoring.py stage: contig FASTA →
-``node_scores.out``.  It runs on the CUDA device unless ``--device cpu``.
+``node_scores.out``.  ``eref`` is the reference's bin/eref: paired reads
+and a phagedb FASTA → ``ref_names.txt``, one ``ref_index`` line a hit
+(also printed); the phagedb's index is cached beside it as
+``{phagedb}.k{K}.palace.npz``.  Both run on the CUDA device unless
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -36,6 +42,21 @@ def _cmd_score(args) -> int:
     return 0
 
 
+def _cmd_eref(args) -> int:
+    from palace_tpu_torch.config import KmerParams
+    from palace_tpu_torch.device import resolve_device
+    from palace_tpu_torch.search.eref import run_search
+    from palace_tpu_torch.search.index import load_or_build_index
+
+    device = resolve_device(args.device)
+    params = KmerParams(k=args.k, hit_ratio=args.hit_ratio,
+                        perfect_hit_ratio=args.perfect_hit_ratio)
+    index = load_or_build_index(args.phagedb, k=args.k)
+    for h in run_search(args.fq1, args.fq2, index, params, args.out, device=device):
+        print(h.line())
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="palace_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -53,6 +74,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="score without a checkpoint (garbage probabilities; "
                         "tests/dev only)")
     p.set_defaults(fn=_cmd_score)
+
+    p = sub.add_parser("eref", help="k-mer reference search (bin/eref)")
+    p.add_argument("fq1")
+    p.add_argument("fq2")
+    p.add_argument("phagedb")
+    p.add_argument("out")
+    p.add_argument("--k", type=int, default=32)
+    p.add_argument("--hit-ratio", type=float, default=0.9)
+    p.add_argument("--perfect-hit-ratio", type=float, default=0.85)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (default) or cpu; there is no fallback between them")
+    p.set_defaults(fn=_cmd_eref)
     args = ap.parse_args(argv)
     return args.fn(args)
 

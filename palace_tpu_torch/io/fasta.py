@@ -1,10 +1,22 @@
-"""FASTA reading and writing (plain or gzip-compressed input)."""
+"""FASTA/FASTQ reading and writing (plain or gzip-compressed input), and
+samtools-style ``.fai`` random access to a FASTA by row and name."""
 from __future__ import annotations
 
 import gzip
 import io
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterable, Iterator, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Tuple
+
+_COMPLEMENT = bytes.maketrans(
+    b"ACGTacgtRYSWKMBDHVNryswkmbdhvn",
+    b"TGCAtgcaYRSWMKVHDBNyrswmkvhdbn",
+)
+
+
+def reverse_complement(seq: str) -> str:
+    """Reverse complement, preserving case; IUPAC codes complement too."""
+    return seq.encode()[::-1].translate(_COMPLEMENT).decode()
 
 
 def _open_text(path: str | Path):
@@ -32,6 +44,25 @@ def iter_fasta(path: str | Path) -> Iterator[Tuple[str, str]]:
         yield name, "".join(chunks)
 
 
+def iter_fastq(path: str | Path) -> Iterator[Tuple[str, str, str]]:
+    """Yield ``(name, sequence, quality)`` from a FASTQ file (optionally gzip);
+    the name stops at the first ``/``, space or tab."""
+    with _open_text(path) as fh:
+        while True:
+            header = fh.readline()
+            if not header:
+                return
+            seq = fh.readline().rstrip("\n")
+            fh.readline()  # '+'
+            qual = fh.readline().rstrip("\n")
+            name = header[1:].rstrip("\n")
+            for delim in ("/", " ", "\t"):
+                idx = name.find(delim)
+                if idx >= 0:
+                    name = name[:idx]
+            yield name, seq, qual
+
+
 def write_fasta(path: str | Path, records: Iterable[Tuple[str, str]],
                 width: int = 0) -> None:
     """Write ``(name, sequence)`` records, wrapped at ``width`` if > 0."""
@@ -43,3 +74,101 @@ def write_fasta(path: str | Path, records: Iterable[Tuple[str, str]],
                     fh.write(seq[i : i + width] + "\n")
             else:
                 fh.write(seq + "\n")
+
+
+@dataclass
+class FaiEntry:
+    name: str
+    length: int
+    offset: int
+    linebases: int
+    linewidth: int
+
+
+class FastaIndex:
+    """samtools-compatible ``.fai``: name, length, offset, linebases, linewidth."""
+
+    def __init__(self, entries: List[FaiEntry]):
+        self.entries = entries
+        self.by_name: Dict[str, FaiEntry] = {e.name: e for e in entries}
+
+    @classmethod
+    def read(cls, path: str | Path) -> "FastaIndex":
+        entries = []
+        with open(path) as fh:
+            for line in fh:
+                f = line.rstrip("\n").split("\t")
+                if len(f) >= 5:
+                    entries.append(FaiEntry(f[0], int(f[1]), int(f[2]), int(f[3]), int(f[4])))
+                elif len(f) >= 2:
+                    entries.append(FaiEntry(f[0], int(f[1]), 0, 0, 0))
+        return cls(entries)
+
+    def write(self, path: str | Path) -> None:
+        with open(path, "w") as fh:
+            for e in self.entries:
+                fh.write(f"{e.name}\t{e.length}\t{e.offset}\t{e.linebases}\t{e.linewidth}\n")
+
+    def name_by_row(self, row_1based: int) -> str:
+        """1-based fai row → sequence name (get_ref_by_index.py:40-49)."""
+        return self.entries[row_1based - 1].name
+
+
+def build_fai(fasta_path: str | Path, fai_path: str | Path | None = None) -> FastaIndex:
+    """Build and write a samtools-compatible index of an uncompressed FASTA."""
+    entries: List[FaiEntry] = []
+    with open(fasta_path, "rb") as fh:
+        name = None
+        length = offset = linebases = linewidth = 0
+        first_line = True
+        while True:
+            raw = fh.readline()
+            if not raw:
+                break
+            if raw.startswith(b">"):
+                if name is not None:
+                    entries.append(FaiEntry(name, length, offset, linebases, linewidth))
+                name = raw[1:].split()[0].decode() if len(raw) > 1 else ""
+                length = 0
+                offset = fh.tell()
+                first_line = True
+            elif name is not None:
+                stripped = raw.rstrip(b"\r\n")
+                if first_line and stripped:
+                    linebases = len(stripped)
+                    linewidth = len(raw)
+                    first_line = False
+                length += len(stripped)
+        if name is not None:
+            entries.append(FaiEntry(name, length, offset, linebases, linewidth))
+    index = FastaIndex(entries)
+    index.write(fai_path if fai_path is not None else str(fasta_path) + ".fai")
+    return index
+
+
+class FastaStore:
+    """Random access to FASTA sequences by name through the ``.fai``
+    offsets (built beside the FASTA when missing)."""
+
+    def __init__(self, fasta_path: str | Path):
+        self.path = str(fasta_path)
+        fai = Path(self.path + ".fai")
+        self.index = FastaIndex.read(fai) if fai.exists() else build_fai(self.path)
+        self._fh = open(self.path, "rb")
+
+    def close(self) -> None:
+        self._fh.close()
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.index.by_name
+
+    def fetch(self, name: str) -> str:
+        e = self.index.by_name[name]
+        self._fh.seek(e.offset)
+        if e.linebases <= 0:
+            raw = self._fh.read().split(b">")[0]
+            return raw.replace(b"\n", b"").replace(b"\r", b"").decode()[: e.length]
+        full_lines = e.length // e.linebases
+        rem = e.length - full_lines * e.linebases
+        raw = self._fh.read(full_lines * e.linewidth + rem)
+        return raw.replace(b"\r", b"").replace(b"\n", b"").decode()

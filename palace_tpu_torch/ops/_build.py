@@ -40,6 +40,8 @@ KERNELS = {
                     [_P, _P, _P, _P, _I, _I, _P]),
     "conv_head": ("conv_head.cu", "palace_conv_layer",
                   [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "good_windows": ("good_windows.cu", "palace_good_windows",
+                     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

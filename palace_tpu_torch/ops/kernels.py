@@ -1,4 +1,5 @@
-"""The scorer's CUDA kernels, each beside its plain PyTorch version.
+"""The port's CUDA kernels, each beside its plain PyTorch version: the
+scorer's K1-K3 and the eref search's K4.
 
 Counterpart of ``palace_tpu/ops/pallas_kernels.py``.  Every wrapper
 takes the plain version for tensors on the CPU, and for CUDA tensors
@@ -280,3 +281,84 @@ def conv_head(x: torch.Tensor, weights: Sequence[torch.Tensor],
             _build.check("conv_head", err)
         x = out
     return x
+
+
+# ---------------------------------------------------------------------------
+# K4: sliding-window good flags of the eref reference scan, bit-packed
+# ---------------------------------------------------------------------------
+
+#: the largest window K4 takes: the block's scan of tile + window positions
+#: lives in shared memory, and single and trio sums share one int32
+GOOD_WINDOWS_MAX_WINDOW = 32768
+
+
+def pack_bits_plain(flags: torch.Tensor) -> torch.Tensor:
+    """(NB, L) bool, L % 8 == 0 → (NB, L/8) uint8, little-endian bit order
+    (``np.packbits(..., bitorder="little")``)."""
+    NB, L = flags.shape
+    weights = (1 << torch.arange(8, device=flags.device, dtype=torch.int32))
+    return (flags.reshape(NB, L // 8, 8).to(torch.int32) * weights).sum(dim=2).to(torch.uint8)
+
+
+def good_windows_plain(counts: torch.Tensor, hashes: torch.Tensor, window: int,
+                       one_min: int, three_min: int, least_depth: int = 3) -> torch.Tensor:
+    """Plain version of ``good_windows``."""
+    NB, L, _ = counts.shape
+    hit = (counts == least_depth) & (hashes != 0)
+    n = hit.sum(dim=2)
+    cs = torch.cumsum((n > 0).to(torch.int32), dim=1)
+    ct = torch.cumsum((n == 3).to(torch.int32), dim=1)
+    # the sum over the `window` positions ending at j; for j < window the
+    # shifted prefix is 0, which gives the reference's growing prefix
+    lag = min(window, L)
+    one = cs - torch.nn.functional.pad(cs, (lag, 0))[:, :L]
+    three = ct - torch.nn.functional.pad(ct, (lag, 0))[:, :L]
+    return pack_bits_plain((one >= one_min) & (three >= three_min))
+
+
+def good_windows(counts: torch.Tensor, hashes: torch.Tensor, window: int,
+                 one_min: int, three_min: int, least_depth: int = 3) -> torch.Tensor:
+    """Good-window flags of the eref scan, packed 8 positions a byte.
+
+    counts (NB, L, 3) uint8 count-table values and hashes (NB, L, 3) int64
+    per (position, coder), L % 8 == 0 → (NB, L/8) uint8.  A coder hits at
+    j when its count equals ``least_depth`` and its hash is not 0; "single"
+    means at least one coder hits, "trio" all three.  Both are summed over
+    the ``window`` positions ending at j (a growing prefix for j < window),
+    and j is good when single_sum ≥ one_min and trio_sum ≥ three_min.  Bit
+    j % 8 of byte j // 8 holds position j (little-endian, as
+    ``np.packbits(..., bitorder="little")``).
+
+    Replaces ``good_windows_pallas`` (palace_tpu/ops/pallas_kernels.py)
+    and, on Phase B's path, its XLA twin ``good_windows_batch``
+    (palace_tpu/ops/window.py).  Bound on the H100: bytes — 27 B read per
+    position (3 counts, 3 int64 hashes) against a few integer operations.
+    Design: the TPU kernel walks the tiles in order and carries the last
+    ``window`` indicators in VMEM; Hopper's blocks run in no order, so
+    each block (one row, 2048 positions) rereads the ``window`` positions
+    before its tile (positions before 0 count as misses, which gives the
+    growing prefix), scans single and trio at once as ``(trio << 16) |
+    single`` in shared memory, and packs 32 flags a warp with
+    ``__ballot_sync``.  Integer work, so it equals the plain version.
+    """
+    if not _same_device("good_windows", counts, hashes):
+        return good_windows_plain(counts, hashes, window, one_min, three_min, least_depth)
+    _require(counts.dim() == 3 and counts.shape[2] == 3 and hashes.shape == counts.shape,
+             "good_windows: counts and hashes must be (NB, L, 3)")
+    NB, L, _ = counts.shape
+    _require(counts.dtype == torch.uint8 and hashes.dtype == torch.int64,
+             "good_windows: counts must be uint8 and hashes int64")
+    _require(L % 8 == 0, "good_windows: L must be a multiple of 8")
+    _require(1 <= window <= GOOD_WINDOWS_MAX_WINDOW,
+             f"good_windows: window must be in [1, {GOOD_WINDOWS_MAX_WINDOW}]")
+    _require(NB < 65536, "good_windows: at most 65535 rows a launch")
+    counts, hashes = counts.contiguous(), hashes.contiguous()
+    out = torch.empty(NB, L // 8, dtype=torch.uint8, device=counts.device)
+    if NB == 0 or L == 0:
+        return out
+    fn = _build.entry("good_windows")
+    err = fn(counts.data_ptr(), hashes.data_ptr(), out.data_ptr(), NB, L, window,
+             one_min, three_min, least_depth, _stream(counts))
+    LAUNCHES["good_windows"] += 1
+    _build.check("good_windows", err)
+    return out

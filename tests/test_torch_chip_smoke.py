@@ -66,10 +66,49 @@ def test_make_contigs():
     assert gc[0] < 0.25 and gc[-1] > 0.75 and np.all(np.diff(gc) > 0)
 
 
-def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch):
-    """The script's phases at 4 contigs a batch on the CPU, where every
-    wrapper takes its plain version: every check passes except the ones
-    that the main path launched each kernel."""
+def _small_eref_world(monkeypatch):
+    """chip_smoke's eref world at a size the CPU runs in seconds: 50 refs
+    of 3-12 kb, 3,000 reads from the one planted ref, k = 20."""
+    monkeypatch.setattr(chip_smoke, "EREF_REFS", 50)
+    monkeypatch.setattr(chip_smoke, "EREF_READS", 3000)
+    monkeypatch.setattr(chip_smoke, "EREF_LEN_RANGE", (3000, 12000))
+    monkeypatch.setattr(chip_smoke, "EREF_K", 20)
+    monkeypatch.setattr(chip_smoke, "PROFILE_CHUNKS", 2)
+
+
+def _jax_hits_on_the_small_world(tmp_path):
+    """The JAX package's hit count on that world (the role the TPU's 67 of
+    benchmarks/phaseb_5kref.json plays at full size)."""
+    from palace_tpu.config import KmerParams
+    from palace_tpu.search.eref import count_reads_into_table, search_references
+    from palace_tpu.search.index import build_index
+
+    db, fq, n_planted = chip_smoke.make_eref_world(
+        tmp_path, chip_smoke.EREF_REFS, chip_smoke.EREF_READS)
+    assert n_planted == 1
+    index = build_index(db, k=chip_smoke.EREF_K, save=False)
+    params = KmerParams(k=chip_smoke.EREF_K)
+    return len(search_references(count_reads_into_table([fq], index, params), index, params))
+
+
+def test_make_eref_world_replays_the_generator(tmp_path):
+    db, fq, n_planted = chip_smoke.make_eref_world(tmp_path, 100, 40, len_range=(500, 900))
+    names = [l[1:].strip() for l in db.read_text().splitlines() if l.startswith(">")]
+    assert names == [f"ref{i + 1}" for i in range(100)] and n_planted == 2
+    rng = np.random.default_rng(chip_smoke.EREF_SEED)
+    lengths = np.exp(rng.uniform(np.log(500), np.log(900), 100)).astype(np.int64)
+    seqs = db.read_text().splitlines()[1::2]
+    assert [len(s) for s in seqs] == lengths.tolist()
+    reads = fq.read_text().splitlines()[1::4]
+    assert len(reads) == 40 and all(len(r) == 150 for r in reads)
+    # reads alternate over the planted refs in the order of their sorted names
+    assert all(reads[i] in seqs[[0, 1][i % 2]] for i in range(40))
+
+
+def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
+    """The script's phases at a small size on the CPU, where every wrapper
+    takes its plain version: every check passes except the ones that each
+    main path launched its kernels."""
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, iters, warmup=2: (fn(), 0.0)[1])
     for name, value in (("synchronize", None), ("reset_peak_memory_stats", None),
                         ("max_memory_allocated", 0), ("empty_cache", None)):
@@ -77,9 +116,18 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch):
     monkeypatch.setattr(chip_smoke, "BATCH", 4)
     monkeypatch.setattr(chip_smoke, "N_CONTIGS", 8)
     monkeypatch.setattr(chip_smoke, "CONTIG_LEN", 2000)
+    _small_eref_world(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "EREF_JAX_HITS", _jax_hits_on_the_small_world(tmp_path))
+    assert chip_smoke.EREF_JAX_HITS == 1
     smoke = chip_smoke.Smoke("cpu")
     chip_smoke.run_phases(smoke)
-    assert smoke.failures == [f"main path launched {name} (0 times)"
-                              for name in chip_smoke.KERNELS]
-    assert {"transition_counts", "sage_rounds", "conv_head", "slice"} <= set(smoke.records)
+    chip_smoke.run_eref_phases(smoke)
+    assert smoke.failures[:3] == [f"main path launched {name} (0 times)"
+                                  for name in chip_smoke.SCORING_KERNELS]
+    assert len(smoke.failures) == 4
+    assert smoke.failures[3].startswith("eref main path launched good_windows once a chunk (0 ")
+    assert {"transition_counts", "sage_rounds", "conv_head", "slice", "eref",
+            "good_windows"} <= set(smoke.records)
     assert smoke.records["slice_err_float32"] <= chip_smoke.PROB_ATOL
+    assert smoke.records["eref"]["n_hits"] == 1 and smoke.records["good_windows"]["chunks"] >= 2
+    assert set(chip_smoke.KERNELS) == set(chip_smoke.SCORING_KERNELS) | {"good_windows"}

@@ -123,3 +123,70 @@ def test_card_wrappers_raise_instead_of_falling_back(cuda):
         kernels.transition_features(torch.zeros(1, 4, dtype=torch.int32, device=cuda),
                                     torch.zeros(1, dtype=torch.int32, device=cuda),
                                     torch.zeros(1, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NB,L,window", [(1, 4096, 500), (5, 6144 + 8, 500), (3, 2040, 5000),
+                                         (2, 10_000, 20_000), (4, 8, 2)])
+def test_card_good_windows_equal_plain(cuda, NB, L, window):
+    """Ragged L (not a multiple of the 2048-position tile, nor of 32),
+    several rows, windows below, above and beyond L, and rows of misses."""
+    rng = np.random.default_rng(NB * L + window)
+    counts = torch.from_numpy(rng.integers(1, 4, (NB, L, 3)).astype(np.uint8)).to(cuda)
+    hashes = torch.from_numpy(rng.integers(0, 1 << 32, (NB, L, 3), dtype=np.int64)).to(cuda)
+    hashes[:, ::7] = 0
+    counts[-1, : L // 2] = 0  # half a row of misses
+    span = min(window, L)  # windows beyond L: the growing prefix decides
+    one_min, three_min = int(span * 0.55), int(span * 0.03)
+    before = kernels.LAUNCHES["good_windows"]
+    got = kernels.good_windows(counts, hashes, window, one_min, three_min)
+    want = kernels.good_windows_plain(counts, hashes, window, one_min, three_min)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["good_windows"] == before + 1
+    assert got.shape == (NB, L // 8) and got.dtype == torch.uint8
+    assert torch.equal(got, want)
+    flags = np.unpackbits(got.cpu().numpy(), axis=1, bitorder="little")
+    assert 0 < flags.mean() < 1
+
+
+@pytest.mark.cuda
+def test_card_good_windows_raises_instead_of_falling_back(cuda):
+    counts = torch.zeros(1, 12, 3, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):  # L % 8 != 0
+        kernels.good_windows(counts, torch.zeros(1, 12, 3, dtype=torch.int64, device=cuda),
+                             10, 1, 1)
+    with pytest.raises(ValueError):  # int32 hashes
+        kernels.good_windows(counts[:, :8], torch.zeros(1, 8, 3, dtype=torch.int32, device=cuda),
+                             10, 1, 1)
+
+
+@pytest.mark.cuda
+def test_card_count_table_and_scan_reference_equal_cpu(cuda):
+    """Phase A's update (torch.unique, gather, clamp, scatter) on the card
+    gives the CPU's table, slot 0 included; scan_reference through K4 on
+    the card gives the CPU's hit."""
+    from palace_tpu_torch.ops.count_table import CountTable
+    from palace_tpu_torch.ops.kmer import make_choose_coder, pack_codes_mask
+    from palace_tpu_torch.ops.window import scan_reference
+
+    rng = np.random.default_rng(6)
+    perm = make_choose_coder(20, seed=1)
+    tables = {dev: CountTable.create(20, device=dev) for dev in ("cpu", "cuda")}
+    for _ in range(3):
+        codes = rng.integers(0, 5, size=(512, 64)).astype(np.uint8)
+        codes[:300] = codes[0]  # a k-mer seen 300 times a batch
+        packed, mask = pack_codes_mask(codes)
+        for t in tables.values():
+            t.add_packed(packed, mask, perm, 20)
+    assert torch.equal(tables["cuda"].table.cpu(), tables["cpu"].table)
+    assert int(tables["cpu"].table[0]) == 3
+
+    counts = rng.integers(0, 4, (3000, 3)).astype(np.uint8)
+    hashes = rng.integers(0, 100, (3000, 3)).astype(np.uint32)
+    kw = dict(ref_index=1, ref_len=3000, window=50, hit_ratio=0.3, perfect_hit_ratio=0.02,
+              min_cover_ratio=0.0)
+    before = kernels.LAUNCHES["good_windows"]
+    got = scan_reference(counts, hashes, **kw)
+    assert kernels.LAUNCHES["good_windows"] == before + 1
+    want = scan_reference(counts, hashes, **kw, device="cpu")
+    assert got is not None and got.line() == want.line()
