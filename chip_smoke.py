@@ -14,11 +14,16 @@ Phases, each of which must pass:
 
 1. the card's name and power limit, the torch and CUDA versions;
 2. the kernels, built from ``palace_tpu_torch/csrc`` with nvcc for sm_90a,
-   with the registers, shared memory and spills ptxas reports;
+   with the registers, shared memory and spills ptxas reports, and K3's
+   dynamic shared memory and blocks an SM in bf16/f16;
 3. each kernel at the main path's shapes against its plain PyTorch
    version on the same inputs (K1 equal; K2 and K3 within
-   ``ops.compare.TOLERANCES``), in float32 and bfloat16, with its time,
-   its bound, the plain version's time and, for K3, cuDNN's;
+   ``ops.compare.TOLERANCES``), in float32, bfloat16 and float16, with
+   its time, its bound, the plain version's time and, for K3, cuDNN's,
+   and each of K3's three layers timed alone against its own bound; K3
+   in bfloat16 and float16 where its outputs are large, against the
+   float64 sums within ``ops.compare.CONV_LARGE_OUTPUTS`` (an einsum and
+   cuDNN counted beside it);
 4. the slice: ``score_sequences`` over 16 batches of 512 contigs in
    bfloat16 with every launch counter reset just before and read just
    after; then one batch in float32 and in bfloat16 against the plain
@@ -50,6 +55,7 @@ a checkout of the repository.
 from __future__ import annotations
 
 import json
+import re
 import sys
 import tempfile
 import time
@@ -78,6 +84,10 @@ EREF_K = 32
 #: "n_hits"); every step is integer work, so an exact port reports as many
 EREF_JAX_HITS = 67
 SMALL_K = 20            # the small world run on the card and on the CPU
+#: the conv head's input where its outputs are large: N(0, 1) activations
+#: and N(0, 0.1) weights put them near 40, beyond the magnitudes
+#: ops.compare.TOLERANCES is stated for (ops.compare.CONV_LARGE_OUTPUTS)
+ROUNDING_SHAPE = (3, 128, 4096)
 PROFILE_CHUNKS = 4      # Phase B chunks under the profiler
 
 # H100 SXM, dense, at its 700 W limit (NVIDIA's data sheet)
@@ -96,6 +106,7 @@ KERNELS = {  # name → (CUDA source, the Pallas call it replaces)
 }
 SCORING_KERNELS = ("transition_counts", "sage_rounds", "conv_head")
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.float16: "float16"}
+LAYOUT = {True: "(B,C,L)", False: "(B,L,C)"}  # channel-major, channel-last
 
 
 def say(*parts) -> None:
@@ -129,15 +140,70 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def conv_smem_bytes(channels: int, in_channel_major: bool) -> int:
+    """The 16-bit conv kernel's dynamic shared memory: the layer's weights
+    [tap][out][channel + 8], a tile of 136 rows [position][channel + 8],
+    and a second tile or, for a channel-major input, the raw tile."""
+    pitch = channels + 8
+    weights, tile = 8 * 64 * pitch * 2, 136 * pitch * 2
+    return weights + tile + (channels * 136 * 2 if in_channel_major else tile)
+
+
+def large_conv_inputs(shape, dtype, device):
+    """The conv head's input where its outputs are large (near 40): N(0, 1)
+    activations, N(0, 0.1) weights and biases, from seed 4."""
+    B, C0, L = shape
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(0, 1, (B, C0, L)).astype(np.float32)).to(device, dtype)
+    ws = [torch.from_numpy(rng.normal(0, 0.1, (64, c, 8)).astype(np.float32)).to(device, dtype)
+          for c in (C0, 64, 64)]
+    bs = [torch.from_numpy(rng.normal(0, 0.1, 64).astype(np.float32)).to(device, dtype)
+          for _ in range(3)]
+    return x, ws, bs
+
+
+def conv_sums(x, weights, biases, acc_dtype):
+    """The conv head with every layer's sums taken in ``acc_dtype``, each
+    layer rounded to the working dtype."""
+    for w, b in zip(weights, biases):
+        u = x.to(acc_dtype).unfold(2, w.shape[2], 1)  # (B, C, L_out, K)
+        z = torch.einsum("bclk,ock->bol", u, w.to(acc_dtype)) + b.to(acc_dtype)[None, :, None]
+        x = torch.relu(z).to(w.dtype)
+    return x
+
+
+def one_mma_chain(x, weights, biases):
+    """The conv head summed as one chain of mma a tile: each 16 products
+    exact, added into the float32 chain rounding toward zero."""
+    for w, b in zip(weights, biases):
+        C, L_out = x.shape[1], x.shape[2] - w.shape[2] + 1
+        xd, wd, acc = x.double(), w.double(), None
+        for c16 in range(C // 16):
+            ch = slice(16 * c16, 16 * c16 + 16)
+            for k in range(w.shape[2]):
+                s = torch.einsum("bcl,oc->bol", xd[:, ch, k:k + L_out], wd[:, ch, k])
+                s = s if acc is None else acc.double() + s
+                acc = s.float()
+                acc = torch.where(acc.double().abs() > s.abs(),
+                                  torch.nextafter(acc, torch.zeros_like(acc)), acc)
+        x = torch.relu(acc + b.float()[None, :, None]).to(w.dtype)
+    return x
+
+
 def ptxas_summary(log: str) -> list:
-    """ptxas -v output → one line per compiled entry: its working dtype,
-    registers, shared memory and spills."""
+    """ptxas -v output → one line per compiled entry: its working dtype
+    (and, for K3's tensor-core variants, the input channels and the input
+    and output layouts), registers, shared memory and spills."""
     out, entry = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             entry = ("bf16" if "bfloat16" in name else "f16" if "__half" in name
                      else "f32" if "IfE" in name else "-")
+            conv = re.search(r"Li(\d+)ELb([01])ELb([01])E", name)
+            if conv:
+                c, i, o = conv.groups()
+                entry += f" C={c} {LAYOUT[i == '1']}->{LAYOUT[o == '1']}"
         elif entry and ("spill" in line or "Used" in line):
             out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -248,6 +314,10 @@ class Smoke:
             for line in ptxas_summary(_build.PTXAS_LOG[name]):
                 say(f"  {name} {line}")
         self.check(_build.kernels_built(), "every kernel built for sm_90a")
+        say("  conv_head bf16/f16 dynamic shared memory (csrc/conv_head.cu's layout): "
+            + ", ".join(f"C={c} {LAYOUT[cm]} input {conv_smem_bytes(c, cm)} B, "
+                        f"{1 if c == 128 else 2} block(s) an SM"
+                        for c, cm in ((128, True), (64, True), (64, False))))
 
     # -- phase 3 -----------------------------------------------------------
     def kernels_at_main_shapes(self, params, contigs):
@@ -276,7 +346,7 @@ class Smoke:
             bound=bound(nbytes(packed, n_codes, lens, feats), pairs, torch.float32),
             library_ms=None)
 
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
             p = {k: v.to(dt) for k, v in params.items()}
             x_p, x_f = gcn.lift_inputs(p, *gcn.model_inputs_from_features(feats.to(dt)))
             x_p, x_f = x_p.contiguous(), x_f.contiguous()
@@ -323,9 +393,9 @@ class Smoke:
                 ms=cuda_ms(lambda: kernels.conv_head(x, cw, cb), 5),
                 plain_ms=cuda_ms(lambda: kernels.conv_head_plain(x, cw, cb), 3),
                 bound=bound(nbytes(x, *cw, *cb, y), ops, dt),
-                library_ms=cuda_ms(cudnn, 5))
+                library_ms=cuda_ms(cudnn, 5), layers=self.conv_layers(x, cw, cb, dt))
             for name, rec in (("sage_rounds", sage_rec), ("conv_head", conv_rec)):
-                self.records[name if dt == torch.bfloat16 else f"{name}/float32"] = rec
+                self.records[name if dt == torch.bfloat16 else f"{name}/{DT_NAME[dt]}"] = rec
             del got, x, y
             torch.cuda.empty_cache()
         for name, rec in self.records.items():
@@ -334,6 +404,53 @@ class Smoke:
             say(f"  {name:<20} {rec['dtype']:<26} kernel {rec['ms']:.4f} ms  "
                 f"plain {rec['plain_ms']:.4f} ms  library {lib} ms  "
                 f"bound {b:.4f} ms ({by})  max_abs_err {rec['max_abs_err']:.3g}")
+
+    def conv_layers(self, x, cw, cb, dt) -> list:
+        """Each layer of K3 alone, in the layouts ``conv_head`` runs it
+        (``kernels.conv_layouts``), with its own bound."""
+        from palace_tpu_torch.ops import kernels
+
+        out = []
+        for i, (w, b, (in_cm, out_cm)) in enumerate(zip(cw, cb, kernels.conv_layouts(3, dt))):
+            def run(x=x, w=w, b=b, in_cm=in_cm, out_cm=out_cm):
+                return kernels.conv_layer(x, w, b, in_cm, out_cm)
+
+            y = run()
+            n_out = y.shape[2] if out_cm else y.shape[1]
+            ops = 2.0 * x.shape[0] * w.shape[0] * w.shape[1] * w.shape[2] * n_out
+            ms = cuda_ms(run, 5)
+            b_ms, by = bound(nbytes(x, w, b, y), ops, dt)
+            rate = f"{ops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f}% of the bound" if ms else ""
+            say(f"    K3 layer {i + 1} {DT_NAME[dt]} {w.shape[1]}->{w.shape[0]} "
+                f"{LAYOUT[in_cm]}->{LAYOUT[out_cm]}: {ms:.4f} ms, bound {b_ms:.4f} ms ({by}) {rate}")
+            out.append(dict(ms=ms, bound_ms=b_ms, bound_by=by))
+            x = y
+        return out
+
+    def conv_rounding(self):
+        """K3 where its outputs are large, against the float64 sums, within
+        ``compare.CONV_LARGE_OUTPUTS``; a float32 einsum over the taps, the
+        plain version (cuDNN in float32) and one mma chain a tile counted
+        beside it, the last of which must fall outside."""
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.ops.compare import CONV_LARGE_OUTPUTS, compare
+
+        for dt in (torch.bfloat16, torch.float16):
+            x, ws, bs = large_conv_inputs(ROUNDING_SHAPE, dt, self.dev)
+            exact, tol = conv_sums(x, ws, bs, torch.float64), CONV_LARGE_OUTPUTS[dt]
+            res = {name: compare(y, exact, tol) for name, y in (
+                ("kernel", kernels.conv_head(x, ws, bs)),
+                ("float32 einsum", conv_sums(x, ws, bs, torch.float32)),
+                ("plain (cuDNN float32)", kernels.conv_head_plain(x, ws, bs)),
+                ("one mma chain a tile", one_mma_chain(x, ws, bs)))}
+            say(f"  K3 {DT_NAME[dt]} at {ROUNDING_SHAPE}, outputs up to "
+                f"{float(exact.float().abs().max()):.1f}; against float64, elements beyond "
+                f"{tol.tol} (rounding steps) and max |error|: " + "; ".join(
+                    f"{name} {r['steps']}, {r['max_abs_err']:.4g}" for name, r in res.items()))
+            self.check(res["kernel"]["ok"], f"K3 {DT_NAME[dt]} at large outputs within {tol} "
+                       f"of float64: {res['kernel']}")
+            self.check(not res["one mma chain a tile"]["ok"],
+                       f"one mma chain a tile falls outside it: {res['one mma chain a tile']}")
 
     # -- phase 4 -----------------------------------------------------------
     def slice(self, params, contigs):
@@ -709,6 +826,7 @@ def run_phases(smoke: Smoke) -> None:
         params = init_params(torch.Generator(device=smoke.dev).manual_seed(SEED))
         smoke.phase("kernels at the main path's shapes", smoke.kernels_at_main_shapes,
                     params, contigs)
+        smoke.phase("K3 where its outputs are large", smoke.conv_rounding)
         smoke.phase("slice", smoke.slice, params, contigs)
         smoke.phase("where the time goes", smoke.where_the_time_goes, params, contigs)
         smoke.phase("slice against the plain versions", smoke.slice_against_plain, params)

@@ -238,6 +238,71 @@ CONV_OUT = 64
 CONV_TAPS = 8
 
 
+def conv_taps(w: torch.Tensor) -> torch.Tensor:
+    """(O, C, K) Conv1d weight → (K, O, C) contiguous: the 16-bit kernel's
+    layout, one tap's (O, C) product operand a slab, channels innermost."""
+    return w.permute(2, 0, 1).contiguous()
+
+
+def conv_layouts(n_layers: int, dtype: torch.dtype) -> list:
+    """(input channel-major, output channel-major) of each layer as
+    ``conv_head`` runs it.  float32 keeps every layer channel-major,
+    (B, C, L).  The 16-bit kernel reads the head's channel-major input,
+    keeps the intermediates channel-last, (B, L, 64), and writes the
+    public channel-major result from the last layer."""
+    if dtype == torch.float32:
+        return [(True, True)] * n_layers
+    _require(n_layers == 3, "conv_head: the 16-bit kernel takes the three-layer head")
+    return [(True, False), (False, False), (False, True)]
+
+
+def conv_layer_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     in_channel_major: bool, out_channel_major: bool) -> torch.Tensor:
+    """Plain version of ``conv_layer``."""
+    y = conv_head_plain(x if in_channel_major else x.transpose(1, 2), [w], [b])
+    return y if out_channel_major else y.transpose(1, 2).contiguous()
+
+
+def conv_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               in_channel_major: bool, out_channel_major: bool) -> torch.Tensor:
+    """One layer of ``conv_head``, in the layouts ``conv_layouts`` gives:
+    x (B, C, L) if ``in_channel_major`` else (B, L, C), a (64, C, 8)
+    weight and a (64,) bias → (B, 64, L - 7) if ``out_channel_major``
+    else (B, L - 7, 64), contiguous.  One launch."""
+    if not _same_device("conv_head", x, w, b):
+        return conv_layer_plain(x, w, b, in_channel_major, out_channel_major)
+    dt = x.dtype
+    _require(dt in _DTYPE_CODES and w.dtype == dt and b.dtype == dt,
+             f"conv_head: activations, weights and biases must share one of {list(_DTYPE_CODES)}")
+    _require(x.dim() == 3, "conv_head: activations must be (B, C, L) or (B, L, C)")
+    B, C, L = x.shape if in_channel_major else (x.shape[0], x.shape[2], x.shape[1])
+    _require(w.shape == (CONV_OUT, C, CONV_TAPS) and b.shape == (CONV_OUT,)
+             and L >= CONV_TAPS,
+             f"conv_head: the CUDA kernel takes ({CONV_OUT}, C, {CONV_TAPS}) weights "
+             f"and L >= {CONV_TAPS}")
+    if dt == torch.float32:
+        _require(in_channel_major and out_channel_major and C % 16 == 0,
+                 "conv_head: the float32 kernel takes channel-major layers, C % 16 == 0")
+        wk = w.permute(1, 2, 0).contiguous()  # (C, K, O): one load per tap
+    else:
+        _require((in_channel_major and not out_channel_major and C in (64, 128))
+                 or (not in_channel_major and C == 64),
+                 "conv_head: the 16-bit kernel takes the layers of conv_layouts: a first "
+                 "layer of 128 or 64 channels, then 64")
+        wk = conv_taps(w)
+    L_out = L - CONV_TAPS + 1
+    shape = (B, CONV_OUT, L_out) if out_channel_major else (B, L_out, CONV_OUT)
+    out = torch.empty(shape, dtype=dt, device=x.device)
+    if B:
+        x = x.contiguous()
+        err = _build.entry("conv_head")(
+            x.data_ptr(), wk.data_ptr(), b.contiguous().data_ptr(), out.data_ptr(), B, C, L,
+            _DTYPE_CODES[dt], int(in_channel_major), int(out_channel_major), _stream(x))
+        LAUNCHES["conv_head"] += 1
+        _build.check("conv_head", err)
+    return out
+
+
 def conv_head(x: torch.Tensor, weights: Sequence[torch.Tensor],
               biases: Sequence[torch.Tensor]) -> torch.Tensor:
     """The scorer's Conv1d(k=8)+bias+relu ×3 head (128→64→64→64).
@@ -249,37 +314,30 @@ def conv_head(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
     Replaces ``conv_head_pallas`` (palace_tpu/ops/pallas_kernels.py).
     Bound on the H100: operations — about 1.07 GFLOP a contig, 548 GFLOP
-    per batch of 512.  Design: neither the weights (256 KB in bf16) nor a
-    row's input fit in a block's shared memory, so one single-layer kernel
-    runs three times; each block computes a 64-channel × 128-position
-    output tile, streaming 16-channel slices of input (with a 7-column
-    halo) and of the weights through shared memory, 32 accumulators a
-    thread in registers.  It runs on the CUDA cores in float32: the
-    tensor cores are work for a later change.  Each of the three layers
-    is one launch, and counts as one.
+    per batch of 512, 0.554 ms at bf16's 989 TFLOP/s.  Design, in bf16
+    and f16: an implicit GEMM on the tensor cores (``mma.sync`` m16n8k16,
+    float32 accumulators), one layer a launch, as the TPU kernel's 8
+    tap-shifted (O, C)·(C, W) products.  Shared memory holds the input
+    tile [position][channel], so a tap shift is a row shift that keeps
+    ``ldmatrix`` aligned; persistent blocks load a layer's weights once
+    and walk over 128-position tiles.  The layers stay unfused and on
+    ``mma.sync``: unfused they move 1.9 GB a batch, 0.56 ms at 3.35 TB/s,
+    while ``ldmatrix``'s shared-memory traffic holds ``mma.sync`` near
+    half the tensor peak, so fusing pays only with ``wgmma`` and TMA.
+    The intermediates are channel-last inside this function
+    (``conv_layouts``).  An mma rounds its sum toward zero, so each
+    16-channel slice's 8 taps are a chain of their own, added to the
+    float32 accumulators with round-to-nearest: that keeps large outputs
+    within ``compare.CONV_LARGE_OUTPUTS`` of the float64 sums.  float32
+    runs on the CUDA cores, where
+    TF32 would break its 1e-4 tolerance.  Each layer is one launch, and
+    counts as one.
     """
     if not _same_device("conv_head", x, *weights, *biases):
         return conv_head_plain(x, weights, biases)
-    dt = x.dtype
-    _require(dt in _DTYPE_CODES, f"conv_head: dtype {dt} not supported")
-    fn = _build.entry("conv_head")
-    stream = _stream(x)
-    x = x.contiguous()
-    for i, (w, b) in enumerate(zip(weights, biases)):
-        B, C, L = x.shape
-        _require(w.dtype == dt and b.dtype == dt,
-                 "conv_head: weights and biases must be in the activations' dtype")
-        _require(w.shape == (CONV_OUT, C, CONV_TAPS) and b.shape == (CONV_OUT,)
-                 and C % 16 == 0 and L >= CONV_TAPS,
-                 "conv_head: the CUDA kernel takes (64, C, 8) weights, C % 16 == 0")
-        wt = w.permute(1, 2, 0).contiguous()  # (C, K, O): one load per tap
-        out = torch.empty(B, CONV_OUT, L - CONV_TAPS + 1, dtype=dt, device=x.device)
-        if B:
-            err = fn(x.data_ptr(), wt.data_ptr(), b.contiguous().data_ptr(),
-                     out.data_ptr(), B, C, L, _DTYPE_CODES[dt], stream)
-            LAUNCHES["conv_head"] += 1
-            _build.check("conv_head", err)
-        x = out
+    _require(x.dtype in _DTYPE_CODES, f"conv_head: dtype {x.dtype} not supported")
+    for w, b, (in_cm, out_cm) in zip(weights, biases, conv_layouts(len(weights), x.dtype)):
+        x = conv_layer(x, w, b, in_cm, out_cm)
     return x
 
 

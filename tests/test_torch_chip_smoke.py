@@ -56,6 +56,23 @@ def test_ptxas_summary_names_each_entry_by_dtype():
     ]
 
 
+def test_ptxas_summary_names_the_conv_head_variants():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_115conv_mma_kernelI13__nv_bfloat16Li128ELb1ELb0EEEvPKT_S4_S4_PS2_iii' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_115conv_mma_kernelI6__halfLi64ELb0ELb1EEEvPKT_S4_S4_PS2_iii' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 96 registers, used 1 barriers",
+    ])
+    assert chip_smoke.ptxas_summary(log) == [
+        "bf16 C=128 (B,C,L)->(B,L,C): Used 168 registers, used 1 barriers",
+        "f16 C=64 (B,L,C)->(B,C,L): Used 96 registers, used 1 barriers",
+    ]
+
+
 def test_make_contigs():
     uniform = chip_smoke.make_contigs(3, 500, seed=1)
     assert [n for n, _ in uniform] == ["contig_0", "contig_1", "contig_2"]
@@ -116,6 +133,7 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "BATCH", 4)
     monkeypatch.setattr(chip_smoke, "N_CONTIGS", 8)
     monkeypatch.setattr(chip_smoke, "CONTIG_LEN", 2000)
+    monkeypatch.setattr(chip_smoke, "ROUNDING_SHAPE", (2, 128, 300))
     _small_eref_world(monkeypatch)
     monkeypatch.setattr(chip_smoke, "EREF_JAX_HITS", _jax_hits_on_the_small_world(tmp_path))
     assert chip_smoke.EREF_JAX_HITS == 1

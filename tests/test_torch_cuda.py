@@ -9,15 +9,17 @@ PyTorch is installed:
 
 Tolerances are ``palace_tpu_torch.ops.compare.TOLERANCES``: float32 1e-4;
 bfloat16 2e-3 and float16 1e-3, with rare rounding steps of one ulp of an
-intermediate.  Transition counts are integers and must be equal.  Without
+intermediate; the conv head at large outputs is held to its float64 sums
+within ``CONV_LARGE_OUTPUTS``.  Transition counts are integers and must be equal.  Without
 a card every test skips."""
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from palace_tpu_torch.models import gcn as tgcn
 from palace_tpu_torch.ops import kernels
-from palace_tpu_torch.ops.compare import TOLERANCES, compare
+from palace_tpu_torch.ops.compare import CONV_LARGE_OUTPUTS, TOLERANCES, compare
 from palace_tpu_torch.ops.encoder import pack_contigs
 
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
@@ -73,20 +75,67 @@ def test_card_sage_rounds_close_to_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_card_conv_head_close_to_plain(cuda, dtype):
+@pytest.mark.parametrize("B,C0,L", [(3, 128, 4096), (2, 128, 300), (1, 128, 22), (1, 64, 1000)])
+def test_card_conv_head_close_to_plain(cuda, dtype, B, C0, L):
+    """The main shape; a ragged one (L_out not a multiple of the 128-position
+    tile, rows not 16-byte aligned); the smallest (L_out = 1); and a first
+    layer of 64 channels.
+
+    Weights and biases are drawn at the scale ``init_params`` gives them,
+    U(±1/sqrt(C·8)), so the layers' outputs stay of order 1, the magnitude
+    ``TOLERANCES`` is stated for.  Larger outputs are the next test's."""
     rng = np.random.default_rng(4)
-    x = torch.from_numpy(rng.normal(0, 1, (3, 128, 4096)).astype(np.float32)).to(cuda, dtype)
-    ws = [torch.from_numpy(rng.normal(0, 0.1, (64, c, 8)).astype(np.float32)).to(cuda, dtype)
-          for c in (128, 64, 64)]
-    bs = [torch.from_numpy(rng.normal(0, 0.1, 64).astype(np.float32)).to(cuda, dtype)
-          for _ in range(3)]
+    x = torch.from_numpy(rng.normal(0, 1, (B, C0, L)).astype(np.float32)).to(cuda, dtype)
+    ws = [torch.from_numpy(rng.uniform(-1, 1, (64, c, 8)).astype(np.float32) / np.sqrt(c * 8))
+          .to(cuda, dtype) for c in (C0, 64, 64)]
+    bs = [torch.from_numpy(rng.uniform(-1, 1, 64).astype(np.float32) / np.sqrt(c * 8))
+          .to(cuda, dtype) for c in (C0, 64, 64)]
     before = kernels.LAUNCHES["conv_head"]
     got = kernels.conv_head(x, ws, bs)
     want = kernels.conv_head_plain(x, ws, bs)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["conv_head"] == before + 3  # one launch a layer
-    assert got.shape == (3, 64, 4075) and got.is_contiguous()
+    assert got.shape == (B, 64, L - 21) and got.is_contiguous()
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_card_conv_head_large_outputs_within_budget_of_float64(cuda, dtype):
+    """N(0, 1) activations and N(0, 0.1) weights put the outputs near 40,
+    where one ulp of bf16 is 2^-2 and float32 sums taken in different
+    orders round some outputs apart, cuDNN's included.  The kernel and the
+    plain version are held to the float64 sums within
+    ``CONV_LARGE_OUTPUTS``; one mma chain a tile, rounding toward zero,
+    falls outside it."""
+    x, ws, bs = chip_smoke.large_conv_inputs((3, 128, 4096), dtype, cuda)
+    exact, tol = chip_smoke.conv_sums(x, ws, bs, torch.float64), CONV_LARGE_OUTPUTS[dtype]
+    assert float(exact.float().abs().max()) > 30
+    got = compare(kernels.conv_head(x, ws, bs), exact, tol)
+    assert got["ok"], got
+    plain = compare(kernels.conv_head_plain(x, ws, bs), exact, tol)
+    assert plain["ok"], plain
+    if dtype != torch.float32:
+        control = compare(chip_smoke.one_mma_chain(x, ws, bs), exact, tol)
+        assert not control["ok"], control
+
+
+@pytest.mark.cuda
+def test_card_conv_head_raises_on_widths_the_16bit_kernel_does_not_take(cuda):
+    x = torch.zeros(1, 96, 64, device=cuda, dtype=torch.bfloat16)
+    ws = [torch.zeros(64, c, 8, device=cuda, dtype=torch.bfloat16) for c in (96, 64, 64)]
+    bs = [torch.zeros(64, device=cuda, dtype=torch.bfloat16) for _ in range(3)]
+    before = kernels.LAUNCHES["conv_head"]
+    with pytest.raises(ValueError):
+        kernels.conv_head(x, ws, bs)
+    with pytest.raises(ValueError):  # 128 channels only in a channel-major first layer
+        kernels.conv_layer(torch.zeros(1, 64, 128, device=cuda, dtype=torch.bfloat16),
+                           torch.zeros(64, 128, 8, device=cuda, dtype=torch.bfloat16), bs[0],
+                           in_channel_major=False, out_channel_major=False)
+    with pytest.raises(ValueError):  # the 16-bit kernel takes the three-layer head
+        kernels.conv_head(torch.zeros(1, 64, 64, device=cuda, dtype=torch.bfloat16),
+                          ws[1:], bs[1:])
+    assert kernels.LAUNCHES["conv_head"] == before
 
 
 @pytest.mark.cuda
