@@ -14,13 +14,14 @@ Phases, each of which must pass:
 
 1. the card's name and power limit, the torch and CUDA versions;
 2. the kernels, built from ``palace_tpu_torch/csrc`` with nvcc for sm_90a,
-   with the registers, shared memory and spills ptxas reports, and K3's
-   dynamic shared memory and blocks an SM in bf16/f16;
+   with the registers, shared memory and spills ptxas reports, and K2's
+   and K3's dynamic shared memory and blocks an SM in bf16/f16;
 3. each kernel at the main path's shapes against its plain PyTorch
    version on the same inputs (K1 equal; K2 and K3 within
    ``ops.compare.TOLERANCES``), in float32, bfloat16 and float16, with
    its time, its bound, the plain version's time and, for K3, cuDNN's,
-   and each of K3's three layers timed alone against its own bound; K3
+   cuBLAS's time for K2's largest product alone (bf16), and each of
+   K3's three layers timed alone against its own bound; K3
    in bfloat16 and float16 where its outputs are large, against the
    float64 sums within ``ops.compare.CONV_LARGE_OUTPUTS`` (an einsum and
    cuDNN counted beside it);
@@ -147,6 +148,14 @@ def conv_smem_bytes(channels: int, in_channel_major: bool) -> int:
     pitch = channels + 8
     weights, tile = 8 * 64 * pitch * 2, 136 * pitch * 2
     return weights + tile + (channels * 136 * 2 if in_channel_major else tile)
+
+
+def sage_smem_bytes() -> int:
+    """The 16-bit SAGE kernel's dynamic shared memory: a 128 × 128 weight
+    and three 64-row tiles as [row][channel + 8], lift1 (64 × 128), all
+    16-bit; 14 float rows of 128 and the f-nodes' 64 × 3 float inputs."""
+    pitch = 128 + 8
+    return 2 * (128 * pitch + 3 * 64 * pitch + 64 * 128) + 4 * (14 * 128 + 64 * 3)
 
 
 def large_conv_inputs(shape, dtype, device):
@@ -314,6 +323,8 @@ class Smoke:
             for line in ptxas_summary(_build.PTXAS_LOG[name]):
                 say(f"  {name} {line}")
         self.check(_build.kernels_built(), "every kernel built for sm_90a")
+        say(f"  sage_rounds bf16/f16 dynamic shared memory (csrc/sage_rounds.cu's layout): "
+            f"{sage_smem_bytes()} B, 2 blocks an SM")
         say("  conv_head bf16/f16 dynamic shared memory (csrc/conv_head.cu's layout): "
             + ", ".join(f"C={c} {LAYOUT[cm]} input {conv_smem_bytes(c, cm)} B, "
                         f"{1 if c == 128 else 2} block(s) an SM"
@@ -367,6 +378,13 @@ class Smoke:
                 ms=cuda_ms(lambda: kernels.sage_rounds(x_p, x_f, w), 10),
                 plain_ms=cuda_ms(lambda: kernels.sage_rounds_plain(x_p, x_f, w), 3),
                 bound=bound(nbytes(x_p, x_f, w, got), ops, dt), library_ms=None)
+            if dt == torch.bfloat16:
+                # not K2's function: one of its products, which the port never
+                # calls, timed as a yardstick for the kernel's tensor-core part
+                a, wr11 = got.reshape(B * pn, gd), w[3 * d3 + 2 * gd:3 * d3 + 3 * gd]
+                ms = cuda_ms(lambda: torch.matmul(a, wr11), 10)
+                say(f"  cuBLAS torch.matmul {tuple(a.shape)} x {tuple(wr11.shape)} bfloat16, "
+                    f"K2's pass-B product alone (not K2's function): {ms:.4f} ms")
 
             # K3, on K2's output in the raw channel-scramble view
             x = got.reshape(B, gd, pn)

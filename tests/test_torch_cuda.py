@@ -56,20 +56,23 @@ def test_card_transition_features_equal_plain(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_card_sage_rounds_close_to_plain(cuda, dtype):
+@pytest.mark.parametrize("B", [1, 4, 133])
+def test_card_sage_rounds_close_to_plain(cuda, dtype, B):
+    """One row; four; and 133, one row past a full wave of 132 blocks, so
+    the ragged last wave and two blocks an SM (16-bit) both run."""
     g = torch.Generator(device="cpu").manual_seed(3)
     p = tgcn.init_params(g)
     p["ln.scale"] = 1 + 0.2 * torch.randn(128, generator=g)
     p["ln.bias"] = 0.2 * torch.randn(128, generator=g)
-    xp = torch.randn(4, 4096, 3, generator=g).to(cuda, dtype)
-    xf = torch.randn(4, 64, 3, generator=g).to(cuda, dtype)
+    xp = torch.randn(B, 4096, 3, generator=g).to(cuda, dtype)
+    xf = torch.randn(B, 64, 3, generator=g).to(cuda, dtype)
     w = tgcn.sage_weight_stack(p, dtype).to(cuda)
     before = kernels.LAUNCHES["sage_rounds"]
     got = kernels.sage_rounds(xp, xf, w)
     want = kernels.sage_rounds_plain(xp, xf, w)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["sage_rounds"] == before + 1
-    assert got.dtype == dtype and got.shape == (4, 4096, 128)
+    assert got.dtype == dtype and got.shape == (B, 4096, 128)
     _assert_close(got, want, dtype)
 
 
