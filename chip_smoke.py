@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 The first main path is the scoring stage, contig FASTA → ``node_scores.out``:
-2-bit packed contigs → transition-count features (kernel K1) → the GCN
+each batch's contigs as ragged ASCII bytes → transition-count features
+(kernel K1, which drops the non-ACGT bytes on the card) → the GCN
 scorer at its published width (``GCNConfig()``), whose SAGE rounds (K2)
 and conv head (K3) are CUDA kernels, with the large products in cuBLAS.
 The workload is the one the scorer's users run: batches of 512 random
@@ -24,14 +25,19 @@ Phases, each of which must pass:
    K3's three layers timed alone against its own bound; K3
    in bfloat16 and float16 where its outputs are large, against the
    float64 sums within ``ops.compare.CONV_LARGE_OUTPUTS`` (an einsum and
-   cuDNN counted beside it);
+   cuDNN counted beside it); K1 on a batch of an assembly's lengths
+   (``make_assembly_contigs``: one 1 Mbp contig, a 50 kb (AT)n, 9 kb and
+   100-N gaps, log-normal lengths), equal to its plain version, with the tiles
+   it ran and its time with one block a row beside it; K1 on rows of
+   poly-A, (AT)n and (CAG)n beside random rows;
 4. the slice: ``score_sequences`` over 16 batches of 512 contigs in
    bfloat16 with every launch counter reset just before and read just
-   after; then one batch in float32 and in bfloat16 against the plain
-   versions on the card, and a few contigs against the plain path on
-   the CPU;
-5. where the time goes: the host's packing time for a batch, and device
-   time by kernel over 4 batches from torch.profiler;
+   after, and in float32; then one batch in float32 and in bfloat16
+   against the plain versions on the card, and a few contigs against the
+   plain path on the CPU;
+5. where the time goes: the host's step for a batch beside the 2-bit
+   packing it replaced, and device time by kernel over 4 batches from
+   torch.profiler, in bfloat16 and in float32;
 6. the eref world of ``benchmarks/phaseb_scale.py:51-83``, replayed call
    for call: 5,000 references of 5-300 kb (357.8 Mbp, seed 7) and 200,000
    reads of 150 bp tiled from the first 100; the port's index build;
@@ -71,6 +77,7 @@ SEED = 0
 BATCH = 512
 CONTIG_LEN = 10_000
 N_CONTIGS = 16 * BATCH
+LONG_CONTIG = 1_000_000  # the longest contig of the assembly-lengths batch
 PROB_ATOL = 2e-4        # float32 probabilities, kernels against plain versions
 PROB_ATOL_BF16 = 2e-2   # bfloat16 probabilities (inputs and weights rounded to 8 bits)
 
@@ -139,6 +146,54 @@ def bound(nbytes: int, ops: float, dtype: torch.dtype) -> tuple:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def k1_bound(data, offsets, seq_lens, feats) -> tuple:
+    """K1's bound on these rows: its inputs read and its features written
+    once; its operations, the pairs counted, at the float32 rate (the data
+    sheet has no integer rate)."""
+    from palace_tpu_torch.ops.encoder import BASE_LUT, INVALID
+
+    lut = torch.from_numpy(BASE_LUT).to(data.device)
+    row = torch.repeat_interleave(torch.arange(seq_lens.numel(), device=data.device),
+                                  offsets.diff())
+    n_codes = torch.bincount(row[lut[data.long()] != INVALID], minlength=seq_lens.numel())
+    pairs = float(sum(torch.clamp(n_codes - 5 - d, min=0).sum() for d in range(3)))
+    return bound(nbytes(data, offsets, seq_lens, feats), pairs, torch.float32)
+
+
+def k1_tiles(offsets, tile: int) -> int:
+    """The tiles (blocks that count) K1 runs on these rows: a row of len
+    bytes has max(1, ceil(len / tile))."""
+    lens = offsets.diff()
+    return int(torch.where(lens > tile, (lens + tile - 1) // tile, 1).sum())
+
+
+def make_assembly_contigs(n: int, seed: int) -> list:
+    """``n`` contigs drawn as a metaSPAdes ``contigs.fasta`` holds them:
+    one of ``LONG_CONTIG`` bases, one 50 kb low-complexity contig
+    ((AT)n), two scaffolds with gaps longer than K1's 8 KiB chunk (9,000
+    N then 5,000 bases; 40 kb with 9,000 n from byte 16,384, a tile
+    edge), and ``n - 4`` of log-normal lengths (median 2 kb, sigma 1,
+    clipped to 500-500,000); every tenth of those has a scaffold gap of
+    100 N.  Sorted longest first, as metaSPAdes writes them."""
+    rng = np.random.default_rng(seed)
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+    def bases(count):
+        return bytes(lut[rng.integers(0, 4, int(count), dtype=np.uint8)]).decode()
+
+    lengths = np.clip(rng.lognormal(np.log(2000), 1.0, n - 4), 500, 500_000).astype(int)
+    seqs = [bases(LONG_CONTIG), "AT" * 25_000, "N" * 9000 + bases(5000),
+            bases(16_384) + "n" * 9000 + bases(40_000 - 25_384)]
+    for i, n_bases in enumerate(lengths):
+        s = bases(n_bases)
+        if i % 10 == 0:
+            gap = int(rng.integers(0, n_bases - 100))
+            s = s[:gap] + "N" * 100 + s[gap + 100:]
+        seqs.append(s)
+    seqs.sort(key=len, reverse=True)
+    return [(f"NODE_{i + 1}_length_{len(s)}", s) for i, s in enumerate(seqs)]
 
 
 def conv_smem_bytes(channels: int, in_channel_major: bool) -> int:
@@ -335,27 +390,23 @@ class Smoke:
         from palace_tpu_torch.models import gcn
         from palace_tpu_torch.ops import kernels
         from palace_tpu_torch.ops.compare import TOLERANCES, compare
-        from palace_tpu_torch.ops.encoder import pack_contigs
+        from palace_tpu_torch.ops.encoder import byte_batch
 
         dev = self.dev
-        packed, n_codes, lens = (torch.from_numpy(a).to(dev)
-                                 for a in pack_contigs([s for _, s in contigs[:BATCH]]))
+        batch = [t.to(dev) for t in byte_batch([s for _, s in contigs[:BATCH]])]
 
         # K1: integer counts, so equal
-        feats = kernels.transition_features(packed, n_codes, lens)
-        plain = kernels.transition_features_plain(packed, n_codes, lens)
+        feats = kernels.transition_features_bytes(*batch)
+        plain = kernels.transition_features_bytes_plain(*batch)
         torch.cuda.synchronize()
         self.check(torch.equal(feats, plain),
-                   f"K1 transition_counts equals its plain version at {tuple(packed.shape)}")
-        n_locs = torch.clamp(n_codes.long() - 2, min=0)
-        pairs = float(sum(torch.clamp(n_locs - 3 - d, min=0).sum() for d in range(3)))
+                   f"K1 transition_counts equals its plain version on {BATCH} rows of "
+                   f"{batch[0].numel()} bytes")
         self.records["transition_counts"] = dict(
-            dtype="int32 counts, float32 out",
-            max_abs_err=float((feats - plain).abs().max()),
-            ms=cuda_ms(lambda: kernels.transition_features(packed, n_codes, lens), 20),
-            plain_ms=cuda_ms(lambda: kernels.transition_features_plain(packed, n_codes, lens), 3),
-            bound=bound(nbytes(packed, n_codes, lens, feats), pairs, torch.float32),
-            library_ms=None)
+            dtype="ASCII in, float32 out", max_abs_err=float((feats - plain).abs().max()),
+            ms=cuda_ms(lambda: kernels.transition_features_bytes(*batch), 20),
+            plain_ms=cuda_ms(lambda: kernels.transition_features_bytes_plain(*batch), 3),
+            bound=k1_bound(*batch, feats), library_ms=None)
 
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             p = {k: v.to(dt) for k, v in params.items()}
@@ -422,6 +473,64 @@ class Smoke:
             say(f"  {name:<20} {rec['dtype']:<26} kernel {rec['ms']:.4f} ms  "
                 f"plain {rec['plain_ms']:.4f} ms  library {lib} ms  "
                 f"bound {b:.4f} ms ({by})  max_abs_err {rec['max_abs_err']:.3g}")
+
+    def k1_on_assembly_lengths(self):
+        """K1 on one batch of ``make_assembly_contigs``: equal to its plain
+        version, its time and bound, the tiles it ran, and the same rows
+        with one block a row (a tile longer than any row) beside it."""
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.ops.encoder import byte_batch
+
+        contigs = make_assembly_contigs(BATCH, SEED + 3)
+        batch = [t.to(self.dev) for t in byte_batch([s for _, s in contigs])]
+        got = kernels.transition_features_bytes(*batch)
+        want = kernels.transition_features_bytes_plain(*batch)
+        torch.cuda.synchronize()
+        lens = batch[1].diff()
+        self.check(torch.equal(got, want),
+                   f"K1 equals its plain version on {len(contigs)} contigs of "
+                   f"{int(lens.min())}-{int(lens.max())} bytes (median {int(lens.median())}), "
+                   f"{batch[0].numel()} bytes in all")
+        ms = cuda_ms(lambda: kernels.transition_features_bytes(*batch), 20)
+        tile, kernels.TILE_BYTES = kernels.TILE_BYTES, int(lens.max()) + 1  # one block a row
+        try:
+            row_ms = cuda_ms(lambda: kernels.transition_features_bytes(*batch), 5)
+        finally:
+            kernels.TILE_BYTES = tile
+        plain_ms = cuda_ms(lambda: kernels.transition_features_bytes_plain(*batch), 3)
+        b, by = k1_bound(*batch, got)
+        tiles = k1_tiles(batch[1], kernels.TILE_BYTES)
+        say(f"  K1 {ms:.4f} ms over {tiles} tiles of {kernels.TILE_BYTES} B "
+            f"({k1_tiles(batch[1][:2] - batch[1][0], kernels.TILE_BYTES)} for the longest "
+            f"contig); one block a row {row_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+            f"bound {b:.4f} ms ({by}); library: none")
+        self.records["transition_counts_assembly"] = dict(
+            ms=ms, one_block_a_row_ms=row_ms, plain_ms=plain_ms, bound_ms=b, tiles=tiles,
+            bytes=batch[0].numel())
+
+    def k1_low_complexity(self):
+        """K1 on ``BATCH`` rows of ``CONTIG_LEN`` bases of one repeat each,
+        where a warp's positions fall into one to three bins, beside
+        random rows: equal to its plain version, and its time."""
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.ops.encoder import byte_batch
+
+        rng = np.random.default_rng(SEED + 4)
+        random_row = bytes(np.frombuffer(b"ACGT", dtype=np.uint8)[
+            rng.integers(0, 4, CONTIG_LEN)]).decode()
+        times = {}
+        for name, row in (("random", random_row), ("poly-A", "A" * CONTIG_LEN),
+                          ("(AT)n", ("AT" * CONTIG_LEN)[:CONTIG_LEN]),
+                          ("(CAG)n", ("CAG" * CONTIG_LEN)[:CONTIG_LEN])):
+            batch = [t.to(self.dev) for t in byte_batch([row] * BATCH)]
+            got = kernels.transition_features_bytes(*batch)
+            ok = torch.equal(got, kernels.transition_features_bytes_plain(*batch))
+            torch.cuda.synchronize()
+            self.check(ok, f"K1 equals its plain version on {BATCH} rows of {name}")
+            times[name] = cuda_ms(lambda: kernels.transition_features_bytes(*batch), 20)
+        say(f"  K1 on {BATCH} rows of {CONTIG_LEN} bases: " + ", ".join(
+            f"{name} {ms:.4f} ms" for name, ms in times.items()))
+        self.records["transition_counts_low_complexity"] = times
 
     def conv_layers(self, x, cw, cb, dt) -> list:
         """Each layer of K3 alone, in the layouts ``conv_head`` runs it
@@ -504,23 +613,50 @@ class Smoke:
             score_sequences(params, contigs, batch_size=BATCH, dtype=bf16, device=dev)
             torch.cuda.synchronize()
             say(f"  repeat: {len(contigs) / (time.perf_counter() - t0):.1f} contigs/s")
+        # float32, the configurations' default dtype (no cast)
+        score_sequences(params, contigs[:BATCH], batch_size=BATCH, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score_sequences(params, contigs, batch_size=BATCH, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        say(f"  float32: {len(contigs)} contigs in {secs:.3f} s, "
+            f"{len(contigs) / secs:.1f} contigs/s")
+        self.records["slice_float32"] = dict(contigs_per_s=len(contigs) / secs, seconds=secs)
 
     def where_the_time_goes(self, params, contigs, n_batches: int = 4):
-        """The host's packing time for one batch, and the device time by
-        kernel over ``n_batches`` batches of the main path (torch.profiler)."""
-        from torch.profiler import ProfilerActivity, profile
-
-        from palace_tpu_torch.models.scoring import score_sequences
+        """The host's step for one batch (``_host_batch``: the byte batch in
+        pinned memory) beside the JAX package's 2-bit packing of the same
+        batch, and the device time by kernel over ``n_batches`` batches of
+        the main path in bfloat16 and in float32 (torch.profiler)."""
+        from palace_tpu_torch.models.scoring import _host_batch
         from palace_tpu_torch.ops.encoder import pack_contigs
 
         seqs = [s for _, s in contigs[:BATCH]]
-        t0 = time.perf_counter()
-        pack_contigs(seqs)
-        say(f"  host pack_contigs: {(time.perf_counter() - t0) * 1e3:.2f} ms for {BATCH} contigs")
-        part = contigs[:n_batches * BATCH]
+        host_ms, pack_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _host_batch(seqs, self.dev)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            pack_contigs(seqs)
+            pack_ms.append((time.perf_counter() - t0) * 1e3)
+        say(f"  host step a batch of {BATCH} contigs (byte batch, pinned): "
+            f"{' / '.join(f'{ms:.2f}' for ms in host_ms)} ms; the 2-bit packing it replaced "
+            f"(pack_contigs, same batch): {' / '.join(f'{ms:.2f}' for ms in pack_ms)} ms")
+        self.records["host_step"] = dict(host_ms=host_ms, pack_contigs_ms=pack_ms)
+        for dt in (torch.bfloat16, None):
+            self.device_split(params, contigs[:n_batches * BATCH], n_batches, dt)
+
+    def device_split(self, params, part, n_batches: int, dtype):
+        from torch.profiler import ProfilerActivity, profile
+
+        from palace_tpu_torch.models.scoring import score_sequences
+
+        name = DT_NAME[dtype or torch.float32]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            score_sequences(params, part, batch_size=BATCH, dtype=torch.bfloat16, device=self.dev)
+            score_sequences(params, part, batch_size=BATCH, dtype=dtype, device=self.dev)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_name: dict = {}
@@ -530,13 +666,16 @@ class Smoke:
                 by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
         busy_ms = sum(ms for ms, _ in by_name.values())
         if not by_name:
-            say("  device time by kernel: not measured (the profiler saw no device events)")
+            say(f"  device time by kernel, {name}: not measured (the profiler saw no device "
+                f"events)")
             return
-        say(f"  profile of {n_batches} batches, bfloat16: wall {wall_ms:.2f} ms, device busy "
+        say(f"  profile of {n_batches} batches, {name}: wall {wall_ms:.2f} ms, device busy "
             f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
             f"{wall_ms / n_batches:.2f} ms per batch")
-        for name, (ms, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-            say(f"    {ms / n_batches:9.3f} ms/batch  {calls:4d} calls  {name[:90]}")
+        for kname, (ms, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+            say(f"    {ms / n_batches:9.3f} ms/batch  {calls:4d} calls  {kname[:90]}")
+        self.records[f"device_split_{name}"] = dict(busy_ms=busy_ms / n_batches,
+                                                    wall_ms=wall_ms / n_batches)
 
     def slice_against_plain(self, params):
         """One batch through the kernels against the plain versions on the
@@ -546,7 +685,7 @@ class Smoke:
         from palace_tpu_torch.models.gcn import GCNScorer
         from palace_tpu_torch.models.scoring import score_sequences
         from palace_tpu_torch.ops import kernels
-        from palace_tpu_torch.ops.encoder import pack_contigs
+        from palace_tpu_torch.ops.encoder import byte_batch
 
         p = dict(params, **{"d1.w": params["d1.w"] * 3.0, "d2.w": params["d2.w"] * 30.0})
         batch, dev = make_contigs(BATCH, CONTIG_LEN, SEED + 2, gc_spread=True), self.dev
@@ -555,8 +694,8 @@ class Smoke:
                                                             dtype=dt, device=dev)])
             model = GCNScorer(p).to(dev)
             model = model.to(dt) if dt is not None else model
-            packed = [torch.from_numpy(a).to(dev) for a in pack_contigs([s for _, s in batch])]
-            want = model.score_features(kernels.transition_features_plain(*packed),
+            rows = [t.to(dev) for t in byte_batch([s for _, s in batch])]
+            want = model.score_features(kernels.transition_features_bytes_plain(*rows),
                                         plain=True).float().cpu().numpy()
             err = float(np.abs(got - want).max())
             name = DT_NAME[dt or torch.float32]
@@ -844,6 +983,8 @@ def run_phases(smoke: Smoke) -> None:
         params = init_params(torch.Generator(device=smoke.dev).manual_seed(SEED))
         smoke.phase("kernels at the main path's shapes", smoke.kernels_at_main_shapes,
                     params, contigs)
+        smoke.phase("K1 on an assembly's lengths", smoke.k1_on_assembly_lengths)
+        smoke.phase("K1 on low-complexity rows", smoke.k1_low_complexity)
         smoke.phase("K3 where its outputs are large", smoke.conv_rounding)
         smoke.phase("slice", smoke.slice, params, contigs)
         smoke.phase("where the time goes", smoke.where_the_time_goes, params, contigs)

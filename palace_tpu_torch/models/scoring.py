@@ -4,10 +4,11 @@ The reference stage (phage_scoring.py main of the original PALACE)
 encodes contigs in a process pool and runs torch inference in batch-64
 chunks, writing ``contig\\tP(phage)`` lines (phage_scoring.py:205-218).
 
-Here the host packs each batch into 2-bit base codes on a background
-thread while the device encodes and scores the batch before it:
-encoding is one kernel launch (``ops.kernels.transition_features``), and
-the GCN forward runs the SAGE-rounds and conv-head kernels.  Results
+Here the host concatenates each batch's bytes on a background thread
+while the device encodes and scores the batch before it: encoding reads
+the ragged bytes in one kernel call
+(``ops.kernels.transition_features_bytes``), and the GCN forward runs
+the SAGE-rounds and conv-head kernels.  Results
 stay on the device until the last batch is queued, then come back in
 one copy.
 """
@@ -24,7 +25,7 @@ import torch
 from palace_tpu_torch.device import resolve_device
 from palace_tpu_torch.io.fasta import iter_fasta
 from palace_tpu_torch.models.gcn import DEFAULT_CONFIG, GCNConfig, GCNScorer
-from palace_tpu_torch.ops.encoder import features_from_packed, pack_contigs
+from palace_tpu_torch.ops.encoder import byte_batch, features_from_bytes
 from palace_tpu_torch.utils.logging import get_logger
 from palace_tpu_torch.utils.timers import GLOBAL_METRICS
 
@@ -51,14 +52,13 @@ def _scorer(params: Mapping[str, torch.Tensor], cfg: GCNConfig, dtype: Optional[
 
 
 def _host_batch(seqs: Sequence[str], device: torch.device) -> List[torch.Tensor]:
-    """Sequences → the packed batch on the host, in pinned memory when it
-    is bound for a card."""
-    ts = [torch.from_numpy(a) for a in pack_contigs(seqs)]
-    return [t.pin_memory() for t in ts] if device.type == "cuda" else ts
+    """Sequences → their ``byte_batch`` on the host, written straight into
+    pinned memory when it is bound for a card."""
+    return list(byte_batch(seqs, pin_memory=device.type == "cuda"))
 
 
 def _device_batch(host: List[torch.Tensor], device: torch.device) -> List[torch.Tensor]:
-    """The packed batch on ``device``; copies to a card do not wait."""
+    """The byte batch on ``device``; copies to a card do not wait."""
     return [t.to(device, non_blocking=True) for t in host]
 
 
@@ -70,7 +70,7 @@ def score_codes(params: Mapping[str, torch.Tensor], seqs: Sequence[str],
     model = _scorer(params, cfg, dtype, dev)
     with torch.inference_mode():
         batch = _device_batch(_host_batch(seqs, dev), dev)
-        return model.score_features(features_from_packed(*batch))
+        return model.score_features(features_from_bytes(*batch))
 
 
 def _batches(items: Iterable[Tuple[str, str]], size: int) -> Iterator[List[Tuple[str, str]]]:
@@ -116,9 +116,9 @@ def score_sequences(
         return names, _host_batch(seqs, dev)
 
     def dispatch(names, host):
-        return names, model.score_features(features_from_packed(*_device_batch(host, dev)))
+        return names, model.score_features(features_from_bytes(*_device_batch(host, dev)))
 
-    # a single background thread packs batch i+1 while this thread ships
+    # a single background thread prepares batch i+1 while this thread ships
     # and dispatches batch i; the device runs behind both
     pending: List[Tuple[List[str], torch.Tensor]] = []
     with torch.inference_mode(), ThreadPoolExecutor(max_workers=1) as pool:

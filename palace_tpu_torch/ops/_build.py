@@ -30,12 +30,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 
 # kernel name → (source file, C entry point, argtypes).  Every pointer and
-# the stream are c_void_p; each entry returns cudaGetLastError() as int.
+# the stream are c_void_p, a byte count c_int64; each entry returns
+# cudaGetLastError() as int.
 KERNELS = {
     "transition_counts": ("transition_counts.cu", "palace_transition_features",
-                          [_P, _P, _P, _P, _I, _I, _P]),
+                          [_P, _P, _P, _P, _P, _I, _L, _I, _P]),
     "sage_rounds": ("sage_rounds.cu", "palace_sage_rounds",
                     [_P, _P, _P, _P, _I, _I, _P]),
     "conv_head": ("conv_head.cu", "palace_conv_layer",

@@ -7,9 +7,11 @@ K=3-mer base-4 codes, and for gaps d ∈ {0,1,2} count transitions
 64×64 matrices are flattened, concatenated and scaled by
 ``100/len(seq)`` (original length, dropped characters included).
 
-The host packs each batch into 2-bit base codes (4 bases a byte); the
-device unpacks, counts and scales in one kernel
-(``ops.kernels.transition_features``).
+The host only concatenates each batch's UTF-8 bytes (``byte_batch``);
+the card drops the non-ACGT bytes, counts and scales in one kernel
+(``features_from_bytes``, ``ops.kernels.transition_features_bytes``).
+The 2-bit packing of the JAX package (``pack_contigs`` and the functions
+under it) is kept beside it as that package's counterpart.
 """
 from __future__ import annotations
 
@@ -23,16 +25,41 @@ NUM_CODES = 64  # 4**K
 GAPS = (0, 1, 2)
 FEATURE_DIM = len(GAPS) * NUM_CODES * NUM_CODES  # 12288
 
-# base → code lookup (A0 C1 G2 T3, others invalid), as in encode.pyx:9
-_BASE_LUT = np.full(256, 255, dtype=np.uint8)
+# byte → base code (A0 C1 G2 T3, either case; INVALID for every other
+# byte), as in encode.pyx:9
+INVALID = 255
+BASE_LUT = np.full(256, INVALID, dtype=np.uint8)
 for _ch, _code in (("A", 0), ("C", 1), ("G", 2), ("T", 3)):
-    _BASE_LUT[ord(_ch)] = _code
-    _BASE_LUT[ord(_ch.lower())] = _code
+    BASE_LUT[ord(_ch)] = _code
+    BASE_LUT[ord(_ch.lower())] = _code
 
 # bytes.translate tables: map ACGT/acgt → code byte and delete everything
 # else, in one C pass
-_CODE_TT = bytes(int(_BASE_LUT[i]) if _BASE_LUT[i] != 255 else 0 for i in range(256))
-_CODE_DELETE = bytes(i for i in range(256) if _BASE_LUT[i] == 255)
+_CODE_TT = bytes(int(BASE_LUT[i]) if BASE_LUT[i] != INVALID else 0 for i in range(256))
+_CODE_DELETE = bytes(i for i in range(256) if BASE_LUT[i] == INVALID)
+
+
+def byte_batch(seqs: Sequence[str], pin_memory: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Host-side: sequences → CPU tensors ``(data (N,) uint8, offsets (B+1,)
+    int64, seq_lens (B,) int32)``, the scorer's input.  ``data`` is every
+    ``s.encode()`` concatenated, row b being ``data[offsets[b]:offsets[b+1]]``;
+    ``seq_lens`` counts characters, not bytes: a non-ASCII character is
+    several bytes, all dropped, and the scale divides by ``len(s)``.  With
+    ``pin_memory`` the three are allocated pinned and the bytes written
+    there directly, for a copy to a card that does not wait."""
+    bufs = [s.encode() for s in seqs]
+    offsets = torch.zeros(len(bufs) + 1, dtype=torch.int64, pin_memory=pin_memory)
+    np.cumsum([len(b) for b in bufs], out=offsets.numpy()[1:])
+    data = torch.empty(int(offsets[-1]), dtype=torch.uint8, pin_memory=pin_memory)
+    # one copy a row with the GIL held: numpy's copies release it for every
+    # row, and each release hands it to the scorer's dispatching thread
+    view = memoryview(data.numpy())
+    for buf, lo in zip(bufs, offsets.tolist()):
+        view[lo:lo + len(buf)] = buf
+    seq_lens = torch.empty(len(seqs), dtype=torch.int32, pin_memory=pin_memory)
+    seq_lens.numpy()[:] = np.fromiter(map(len, seqs), dtype=np.int32, count=len(seqs))
+    return data, offsets, seq_lens
 
 
 def _pad_to_multiple(n: int, m: int = 512) -> int:
@@ -87,12 +114,12 @@ def locs_from_codes(codes: torch.Tensor, n_codes: torch.Tensor
     return locs, n_locs
 
 
-def features_from_packed(packed: torch.Tensor, n_codes: torch.Tensor,
-                         seq_lens: torch.Tensor) -> torch.Tensor:
-    """2-bit-packed base codes → (B, 12288) float32 features, counts
-    scaled by ``100 / max(len, 1)`` — one launch of the transition-count
-    kernel on a CUDA device."""
-    from palace_tpu_torch.ops.kernels import transition_features
+def features_from_bytes(data: torch.Tensor, offsets: torch.Tensor,
+                        seq_lens: torch.Tensor) -> torch.Tensor:
+    """A ``byte_batch`` → (B, 12288) float32 features, counts scaled by
+    ``100 / max(len, 1)``: one call of the transition-count kernel on a
+    CUDA device."""
+    from palace_tpu_torch.ops.kernels import transition_features_bytes
 
-    return transition_features(packed, n_codes, seq_lens)
+    return transition_features_bytes(data, offsets, seq_lens)
 

@@ -19,12 +19,13 @@ import torch
 from palace_tpu_torch.ops import _build
 from palace_tpu_torch.ops._build import LAUNCHES, reset_launches  # noqa: F401
 from palace_tpu_torch.ops.encoder import (
+    BASE_LUT,
     FEATURE_DIM,
     GAPS,
+    INVALID,
     K,
     NUM_CODES,
     locs_from_codes,
-    unpack_codes,
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -49,33 +50,58 @@ def _same_device(name: str, *ts: torch.Tensor) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# K1: transition counts, fused with the 2-bit unpack and the ×100/len scale
+# K1: transition counts from ASCII rows, fused with the compaction and the
+# ×100/len scale
 # ---------------------------------------------------------------------------
 
-def transition_counts_plain(locs: torch.Tensor, n_locs: torch.Tensor) -> torch.Tensor:
-    """(B, L) 3-mer codes + (B,) valid counts → (B, 3, 64, 64) float32
+#: bytes of a row that one block of the K1 kernel counts; longer rows are
+#: split over blocks (a 10 kb contig is one tile)
+TILE_BYTES = 16384
+
+
+def _pair_counts(locs: torch.Tensor, row: torch.Tensor, pos: torch.Tensor,
+                 n_locs: torch.Tensor, B: int) -> torch.Tensor:
+    """Flat 3-mer codes ``locs`` (M,), each at position ``pos`` of row
+    ``row`` whose valid count is ``n_locs`` (M,) → (B, 3, 64, 64) float32
     ``M_d[u, v] = #{i < n - 3 - d : locs[i] = u, locs[i+3+d] = v}``."""
-    B, L = locs.shape
-    locs = locs.to(torch.int64)
-    n_locs = n_locs.to(torch.int64)
-    pos = torch.arange(L, device=locs.device)
-    row = torch.arange(B, device=locs.device)[:, None] * (NUM_CODES * NUM_CODES)
     out = []
     for d in GAPS:
         shift = K + d
-        n = max(L - shift, 0)
-        valid = pos[None, :n] < (n_locs[:, None] - shift)
-        idx = (row + locs[:, :n] * NUM_CODES + locs[:, shift:shift + n])[valid]
+        n = max(locs.shape[0] - shift, 0)
+        valid = pos[:n] < n_locs[:n] - shift  # so locs[i + shift] lies in the same row
+        idx = ((row[:n] * NUM_CODES + locs[:n]) * NUM_CODES + locs[shift:shift + n])[valid]
         out.append(torch.bincount(idx, minlength=B * NUM_CODES * NUM_CODES)
                    .reshape(B, NUM_CODES, NUM_CODES))
     return torch.stack(out, dim=1).to(torch.float32)
 
 
-def transition_features_plain(packed: torch.Tensor, n_codes: torch.Tensor,
-                              seq_lens: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``transition_features``."""
-    locs, n_locs = locs_from_codes(unpack_codes(packed), n_codes)
-    counts = transition_counts_plain(locs, n_locs).reshape(packed.shape[0], FEATURE_DIM)
+def transition_counts_plain(locs: torch.Tensor, n_locs: torch.Tensor) -> torch.Tensor:
+    """(B, L) 3-mer codes + (B,) valid counts → (B, 3, 64, 64) float32
+    ``M_d[u, v] = #{i < n - 3 - d : locs[i] = u, locs[i+3+d] = v}``: the
+    counting of ``transition_features_bytes_plain`` at the Pallas kernel's
+    padded interface."""
+    B, L = locs.shape
+    dev = locs.device
+    row = torch.arange(B, device=dev).repeat_interleave(L)
+    pos = torch.arange(L, device=dev).repeat(B)
+    n = torch.clamp(n_locs.to(torch.int64), max=L).repeat_interleave(L)
+    return _pair_counts(locs.to(torch.int64).reshape(-1), row, pos, n, B)
+
+
+def transition_features_bytes_plain(data: torch.Tensor, offsets: torch.Tensor,
+                                    seq_lens: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``transition_features_bytes``: the byte → code
+    table, the compaction, and the counts over the compacted stream."""
+    B, dev = seq_lens.shape[0], data.device
+    codes = torch.from_numpy(BASE_LUT).to(dev)[data.to(torch.int64)]
+    keep = codes != INVALID
+    row = torch.repeat_interleave(torch.arange(B, device=dev), offsets.diff())[keep]
+    n_codes = torch.bincount(row, minlength=B)
+    first = torch.cumsum(n_codes, 0) - n_codes
+    pos = torch.arange(row.shape[0], device=dev) - first[row]
+    codes = torch.nn.functional.pad(codes[keep], (0, K - 1))
+    locs, n_locs = locs_from_codes(codes[None], n_codes)
+    counts = _pair_counts(locs[0], row, pos, n_locs[row], B).reshape(B, FEATURE_DIM)
     # a tensor numerator: ``100.0 / t`` would multiply by the reciprocal,
     # which is not IEEE division and differs from JAX in the last bit
     lens = torch.clamp(seq_lens.to(torch.float32), min=1.0)
@@ -83,36 +109,42 @@ def transition_features_plain(packed: torch.Tensor, n_codes: torch.Tensor,
     return counts * scale[:, None]
 
 
-def transition_features(packed: torch.Tensor, n_codes: torch.Tensor,
-                        seq_lens: torch.Tensor) -> torch.Tensor:
-    """(B, P) uint8 2-bit-packed base codes, (B,) int32 valid code counts,
-    (B,) int32 original lengths → (B, 12288) float32 features.
+def transition_features_bytes(data: torch.Tensor, offsets: torch.Tensor,
+                              seq_lens: torch.Tensor) -> torch.Tensor:
+    """(N,) uint8 rows' bytes concatenated, (B+1,) int64 row offsets, (B,)
+    int32 lengths in characters → (B, 12288) float32 features.
 
     Replaces ``transition_counts_pallas`` (palace_tpu/ops/pallas_kernels.py)
-    together with the unpack and scale around it (palace_tpu/ops/encoder.py
-    ``features_from_packed``).  Bound on the H100: bytes — about 1.3 MB
-    in and 25 MB out per batch of 512 × 10 kb — but shared-memory atomics
-    set the pace.  Design: one block per contig row keeps the row's
-    3 × 4096 int32 histogram in 48 KiB of shared memory, so the one-hot
-    matrices of the TPU kernel never exist; each thread unpacks the 2-bit
-    codes it needs straight from the packed row.  Counts are integers, so
-    the result equals the plain version exactly.
+    together with the host packing before it and the unpack and scale
+    around it (palace_tpu/ops/encoder.py ``pack_contigs``,
+    ``features_from_packed``).  Bound on the H100: bytes — 5.1 MB in and
+    25 MB out per batch of 512 × 10 kb.  Design (``csrc/transition_counts.cu``):
+    a plan pass gives each row its tiles of ``TILE_BYTES`` (one block a
+    tile, so a long row spreads over the card); a block compacts its bytes
+    into shared memory, reading on past its tile for the 7 codes its last
+    windows need, and counts into a 3 × 4096 int32 shared histogram, each
+    thread holding its last 4 bins in registers so that low-complexity
+    rows do not serialise the atomics; a row of several tiles sums them in
+    its output row, scaled by its last tile.  Counts are integers, so the
+    result equals the plain version exactly.
     """
-    if not _same_device("transition_features", packed, n_codes, seq_lens):
-        return transition_features_plain(packed, n_codes, seq_lens)
-    B, P = packed.shape
-    _require(packed.dtype == torch.uint8 and packed.is_contiguous(),
-             "transition_features: packed must be contiguous uint8 (B, P)")
-    _require(n_codes.dtype == torch.int32 and seq_lens.dtype == torch.int32
-             and n_codes.shape == (B,) and seq_lens.shape == (B,),
-             "transition_features: n_codes and seq_lens must be int32 (B,)")
-    n_codes, seq_lens = n_codes.contiguous(), seq_lens.contiguous()
-    out = torch.empty(B, FEATURE_DIM, dtype=torch.float32, device=packed.device)
+    if not _same_device("transition_features_bytes", data, offsets, seq_lens):
+        return transition_features_bytes_plain(data, offsets, seq_lens)
+    B = seq_lens.shape[0] if seq_lens.dim() == 1 else -1
+    _require(data.dtype == torch.uint8 and data.dim() == 1 and data.is_contiguous(),
+             "transition_features_bytes: data must be contiguous uint8 (N,)")
+    _require(seq_lens.dtype == torch.int32 and B >= 0,
+             "transition_features_bytes: seq_lens must be int32 (B,)")
+    _require(offsets.dtype == torch.int64 and offsets.shape == (B + 1,),
+             "transition_features_bytes: offsets must be int64 (B+1,)")
+    offsets, seq_lens = offsets.contiguous(), seq_lens.contiguous()
+    out = torch.empty(B, FEATURE_DIM, dtype=torch.float32, device=data.device)
     if B == 0:
         return out
+    scratch = torch.empty(2 * B + 1, dtype=torch.int32, device=data.device)
     fn = _build.entry("transition_counts")
-    err = fn(packed.data_ptr(), n_codes.data_ptr(), seq_lens.data_ptr(),
-             out.data_ptr(), B, P, _stream(packed))
+    err = fn(data.data_ptr(), offsets.data_ptr(), seq_lens.data_ptr(), scratch.data_ptr(),
+             out.data_ptr(), B, data.numel(), TILE_BYTES, _stream(data))
     LAUNCHES["transition_counts"] += 1
     _build.check("transition_counts", err)
     return out

@@ -83,6 +83,35 @@ def test_make_contigs():
     assert gc[0] < 0.25 and gc[-1] > 0.75 and np.all(np.diff(gc) > 0)
 
 
+def test_make_assembly_contigs(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "LONG_CONTIG", 60_000)
+    contigs = chip_smoke.make_assembly_contigs(40, seed=3)
+    lens = [len(s) for _, s in contigs]
+    assert len(contigs) == 40 and lens == sorted(lens, reverse=True) and lens[0] == 60_000
+    seqs = [s for _, s in contigs]
+    assert 500 <= min(lens) and "AT" * 25_000 in seqs
+    # a 100-N gap in every tenth of the 36 log-normal contigs
+    assert sum("N" * 100 in s and "N" * 101 not in s for s in seqs) == 4
+    # gaps longer than K1's 8 KiB chunk, one at the start, one on a tile edge
+    assert sum(s.startswith("N" * 9000) and len(s) == 14_000 for s in seqs) == 1
+    assert sum(s[16_384:25_384] == "n" * 9000 and len(s) == 40_000 for s in seqs) == 1
+    assert contigs == chip_smoke.make_assembly_contigs(40, seed=3)
+
+
+def test_k1_tiles_and_bound_count_the_rows():
+    offsets = torch.tensor([0, 0, 10, 16384, 32769, 32769 + 50_000])
+    assert chip_smoke.k1_tiles(offsets, 16384) == 1 + 1 + 1 + 2 + 4
+    data = torch.frombuffer(bytearray(b"ACGTACGTNN" + b"A" * 16374 + b"C" * 16385 + b"G" * 50_000),
+                            dtype=torch.uint8)
+    lens = offsets.diff().to(torch.int32)
+    feats = torch.zeros(5, 12288)
+    ms, by = chip_smoke.k1_bound(data, offsets, lens, feats)
+    # codes 0, 8, 16374, 16385, 50000: pairs sum over rows of max(n - 5 - d, 0)
+    pairs = sum(max(n - 5 - d, 0) for n in (0, 8, 16374, 16385, 50_000) for d in range(3))
+    want, _ = chip_smoke.bound(data.numel() + 6 * 8 + 5 * 4 + 5 * 12288 * 4, pairs, torch.float32)
+    assert by == "bytes" and ms == pytest.approx(want)
+
+
 def _small_eref_world(monkeypatch):
     """chip_smoke's eref world at a size the CPU runs in seconds: 50 refs
     of 3-12 kb, 3,000 reads from the one planted ref, k = 20."""
@@ -133,6 +162,7 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "BATCH", 4)
     monkeypatch.setattr(chip_smoke, "N_CONTIGS", 8)
     monkeypatch.setattr(chip_smoke, "CONTIG_LEN", 2000)
+    monkeypatch.setattr(chip_smoke, "LONG_CONTIG", 40_000)
     monkeypatch.setattr(chip_smoke, "ROUNDING_SHAPE", (2, 128, 300))
     _small_eref_world(monkeypatch)
     monkeypatch.setattr(chip_smoke, "EREF_JAX_HITS", _jax_hits_on_the_small_world(tmp_path))
@@ -145,7 +175,8 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
     assert len(smoke.failures) == 4
     assert smoke.failures[3].startswith("eref main path launched good_windows once a chunk (0 ")
     assert {"transition_counts", "sage_rounds", "conv_head", "slice", "eref",
-            "good_windows"} <= set(smoke.records)
+            "good_windows", "transition_counts_assembly", "slice_float32",
+            "host_step", "transition_counts_low_complexity"} <= set(smoke.records)
     assert smoke.records["slice_err_float32"] <= chip_smoke.PROB_ATOL
     assert smoke.records["eref"]["n_hits"] == 1 and smoke.records["good_windows"]["chunks"] >= 2
     assert set(chip_smoke.KERNELS) == set(chip_smoke.SCORING_KERNELS) | {"good_windows"}

@@ -20,7 +20,7 @@ import chip_smoke
 from palace_tpu_torch.models import gcn as tgcn
 from palace_tpu_torch.ops import kernels
 from palace_tpu_torch.ops.compare import CONV_LARGE_OUTPUTS, TOLERANCES, compare
-from palace_tpu_torch.ops.encoder import pack_contigs
+from palace_tpu_torch.ops.encoder import byte_batch
 
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
@@ -40,18 +40,120 @@ def _assert_close(got, want, dtype):
     assert res["ok"], res
 
 
+def _bytes_on(seqs, device):
+    return [t.to(device) for t in byte_batch(seqs)]
+
+
+def _random_bases(rng, n, alphabet="ACGT"):
+    return "".join(rng.choice(list(alphabet), size=int(n)))
+
+
+def _n_runs_on_tile_edges(rng, tile):
+    """Rows of 1-4 tiles with N runs (1-120 long) across each tile edge."""
+    rows = []
+    for n_tiles in (1, 2, 3, 4):
+        s = list(_random_bases(rng, n_tiles * tile + int(rng.integers(0, 97))))
+        for edge in range(tile, len(s), tile):
+            run = int(rng.integers(1, 121))
+            start = edge - int(rng.integers(0, run + 1))
+            s[max(start, 0):start + run] = "N" * len(s[max(start, 0):start + run])
+        rows.append("".join(s))
+    return rows + ["", "ACGTNNNNNNNNACG", _random_bases(rng, 300, "ACGTNn")]
+
+
+def _long_gaps(rng):
+    """Gaps longer than the kernel's 8 KiB chunk, at the start of a row and
+    from a tile edge (``kernels.TILE_BYTES``), of N, n and IUPAC codes: a
+    chunk of a tile with no base in it."""
+    T, rows = kernels.TILE_BYTES, []
+    for gap in ("N" * 9000, "n" * 9000, _random_bases(rng, 9000, "RYSWKMBDHVN")):
+        rows += [gap + _random_bases(rng, 5000),
+                 _random_bases(rng, T) + gap + _random_bases(rng, 40_000 - T - 9000)]
+    return rows
+
+
+def _byte_cases(tile):
+    rng = np.random.default_rng(2)
+    short = [_random_bases(rng, n, "ACGTNacgtn") for n in rng.integers(0, 3000, 40)]
+    return {
+        "long_gaps": _long_gaps(rng),
+        "n_runs_on_tile_edges": _n_runs_on_tile_edges(rng, tile),
+        "one_tile_and_one_tile_plus_one": [_random_bases(rng, tile), _random_bases(rng, tile + 1),
+                                           "AC", _random_bases(rng, tile - 1)],
+        "one_mbp_among_short": short[:20] + [_random_bases(rng, 1_000_000, "ACGTN")] + short[20:],
+        "low_complexity": ["A" * 50_000, "AT" * 25_000, "CAG" * 16_667, _random_bases(rng, 900)],
+        "non_ascii": ["ACGTé" * 4000, "日本ACGTACGT" * 10, "ÅCGTTGCA→ACGT" * 300],
+        "empty_rows": ["", "", ""],
+    }
+
+
 @pytest.mark.cuda
 def test_card_transition_features_equal_plain(cuda):
+    """Ragged random rows with N runs, and short and empty rows."""
     rng = np.random.default_rng(2)
-    seqs = ["".join(rng.choice(list("ACGTN"), size=int(n)))
-            for n in rng.integers(0, 3000, 64)] + ["", "AC", "ACG", "ACGTAC", "N" * 9]
-    packed, n_codes, lens = (torch.from_numpy(a).to(cuda) for a in pack_contigs(seqs))
+    seqs = [_random_bases(rng, n, "ACGTN") for n in rng.integers(0, 3000, 64)] + [
+        "", "AC", "ACG", "ACGTAC", "N" * 9]
+    batch = _bytes_on(seqs, cuda)
     before = kernels.LAUNCHES["transition_counts"]
-    got = kernels.transition_features(packed, n_codes, lens)
+    got = kernels.transition_features_bytes(*batch)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["transition_counts"] == before + 1
-    assert torch.equal(got, kernels.transition_features_plain(packed, n_codes, lens))
+    assert torch.equal(got, kernels.transition_features_bytes_plain(*batch))
     assert got.sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [kernels.TILE_BYTES, 1000])
+@pytest.mark.parametrize("case", ["n_runs_on_tile_edges", "one_tile_and_one_tile_plus_one",
+                                  "one_mbp_among_short", "low_complexity", "non_ascii",
+                                  "empty_rows", "long_gaps"])
+def test_card_transition_features_bytes_cases_equal_plain(cuda, case, tile, monkeypatch):
+    """Each case at the main path's tile and at 1000 bytes, where every
+    row of more than 1000 bytes spreads over several blocks."""
+    seqs = _byte_cases(tile)[case]
+    batch = _bytes_on(seqs, cuda)
+    monkeypatch.setattr(kernels, "TILE_BYTES", tile)
+    before = kernels.LAUNCHES["transition_counts"]
+    got = kernels.transition_features_bytes(*batch)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["transition_counts"] == before + 1
+    assert got.shape == (len(seqs), 12288)
+    assert torch.equal(got, kernels.transition_features_bytes_plain(*batch))
+
+
+@pytest.mark.cuda
+def test_card_transition_features_hold_bad_offsets_inside_the_data(cuda):
+    """Offsets that run backwards or past the data read nothing outside it:
+    row 1 (backwards) counts nothing, row 2 stops at the data's end."""
+    seqs = ["ACGTACGTAC", "GGCATTACGT"]
+    data, offsets, lens = _bytes_on(seqs, cuda)
+    bad = torch.tensor([0, 10, 5, 1 << 40], dtype=torch.int64, device=cuda)
+    got = kernels.transition_features_bytes(data, bad, torch.cat([lens, lens[:1]]))
+    torch.cuda.synchronize()
+    want = kernels.transition_features_bytes_plain(data, offsets, lens)
+    assert torch.equal(got[0], want[0]) and not got[1].any()
+    row2 = kernels.transition_features_bytes_plain(
+        data[5:], torch.tensor([0, 15], device=cuda), lens[:1])
+    assert torch.equal(got[2], row2[0])
+
+
+@pytest.mark.cuda
+def test_card_host_batch_is_pinned_and_equal_to_byte_batch(cuda):
+    from palace_tpu_torch.models.scoring import _host_batch
+
+    seqs = ["ACGTé", "", "NNNNACGT" * 100]
+    host = _host_batch(seqs, cuda)
+    assert all(t.is_pinned() for t in host)
+    for got, want in zip(host, byte_batch(seqs)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_card_transition_features_of_no_rows_launch_nothing(cuda):
+    batch = _bytes_on([], cuda)
+    before = kernels.LAUNCHES["transition_counts"]
+    assert kernels.transition_features_bytes(*batch).shape == (0, 12288)
+    assert kernels.LAUNCHES["transition_counts"] == before
 
 
 @pytest.mark.cuda
@@ -151,9 +253,8 @@ def test_card_forward_through_kernels_close_to_plain(cuda):
     rng = np.random.default_rng(5)
     seqs = ["".join(rng.choice(list("ACGT"), size=3000, p=q))
             for q in ([.1, .4, .4, .1], [.4, .1, .1, .4], [.25] * 4, [.3, .2, .2, .3])]
-    packed, n_codes, lens = (torch.from_numpy(a).to(cuda) for a in pack_contigs(seqs))
     x_p, x_f = tgcn.model_inputs_from_features(
-        kernels.transition_features(packed, n_codes, lens))
+        kernels.transition_features_bytes(*_bytes_on(seqs, cuda)))
     got = tgcn.forward(p, x_p, x_f, return_logits=True)
     want = tgcn.forward(p, x_p, x_f, return_logits=True, plain=True)
     torch.cuda.synchronize()
@@ -171,10 +272,14 @@ def test_card_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         kernels.sage_rounds(torch.zeros(1, 8, 3, device=cuda), torch.zeros(1, 2, 3, device=cuda),
                             torch.zeros(kernels.sage_stack_rows(3, 4), 4, device=cuda))
+    data, offsets, lens = _bytes_on(["ACGT", "AC"], cuda)
+    for bad in ((data.int(), offsets, lens), (data.reshape(2, 3), offsets, lens),
+                (data, offsets.int(), lens), (data, offsets[1:], lens),
+                (data, offsets, lens.long()), (data, offsets, lens[None])):
+        with pytest.raises(ValueError):
+            kernels.transition_features_bytes(*bad)
     with pytest.raises(ValueError):
-        kernels.transition_features(torch.zeros(1, 4, dtype=torch.int32, device=cuda),
-                                    torch.zeros(1, dtype=torch.int32, device=cuda),
-                                    torch.zeros(1, dtype=torch.int32, device=cuda))
+        kernels.transition_features_bytes(data, offsets.cpu(), lens)
 
 
 @pytest.mark.cuda

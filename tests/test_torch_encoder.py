@@ -1,8 +1,10 @@
 """Port encoder and the plain version of the transition-count kernel (K1)
 against the JAX encoder, the Pallas kernel in interpret mode, and the
-reference's per-sequence loop.  Counts are integers: port and JAX must
-be equal; the float64 reference loop scales in another order, so it is
-held at rtol 1e-5 as tests/test_gcn.py holds JAX to it."""
+reference's per-sequence loop.  Counts are integers and the scale one
+IEEE division: the port's byte path and JAX ``features_from_packed(
+*pack_contigs(seqs))`` must be equal bit for bit; the float64 reference
+loop scales in another order, so it is held at rtol 1e-5 as
+tests/test_gcn.py holds JAX to it."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,9 +33,60 @@ CASES = {
 
 
 def _port_features(seqs):
-    packed, n_codes, lens = tenc.pack_contigs(seqs)
-    return tenc.features_from_packed(torch.from_numpy(packed), torch.from_numpy(n_codes),
-                                     torch.from_numpy(lens)).numpy()
+    return tenc.features_from_bytes(*tenc.byte_batch(seqs)).numpy()
+
+
+def _jax_features(seqs):
+    return np.asarray(jenc.features_from_packed(*(jnp.asarray(a)
+                                                  for a in jenc.pack_contigs(seqs))))
+
+
+def _with_runs(n, runs):
+    """``n`` random bases with ``N`` runs written over them: (start, length)."""
+    s = list(_random_seq(n))
+    for start, length in runs:
+        s[start:start + length] = "N" * length
+    return "".join(s[:n])
+
+
+T = kernels.TILE_BYTES
+BYTE_CASES = {
+    "lower": [_random_seq(300).lower(), "acgtACGTacgt" * 20, "gattaca"],
+    "iupac": ["ACGTRYSWKMBDHVN" * 30, "".join(RNG.choice(list("ACGTRYKMN"), size=700)),
+              "RYRYRYACGTACGT"],
+    "non_ascii": ["ACGTé" * 50, "ÅCGTTGCA→ACGT" * 20, "日本ACGTACGTACGT", "ACGT\x00ACGT"],
+    "short": ["", "A", "AC", "ACG", "ACGT", "ACGTA", "ACGTAC", "ACGTACG", ""],
+    "all_n": ["N" * 9, "n" * 300, "", "NNNN"],
+    "n_runs_on_tile_edges": [
+        _with_runs(T + 1, [(T - 3, 7)]), _with_runs(2 * T + 50, [(T - 100, 100), (2 * T, 5)]),
+        _with_runs(T, [(0, 4), (T - 6, 6)]), _with_runs(3 * T, [(T - 2, T + 4)])],
+    # gaps longer than the kernel's 8 KiB chunk: at a row's start, from a tile edge
+    "long_gaps": ["N" * 9000 + _random_seq(5000), _with_runs(40_000, [(T, 9000)]),
+                  _random_seq(T) + "n" * 9000 + _random_seq(5000),
+                  "".join(RNG.choice(list("RYSWKMBDHVN"), size=9000)) + _random_seq(5000)],
+    "lengths_10_to_200000": [_random_seq(int(n), with_junk=True)
+                             for n in (10, 200_000, 999, 16_384, 50_000, 37)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(BYTE_CASES))
+def test_byte_path_equals_jax_packed_path(case):
+    seqs = BYTE_CASES[case]
+    data, offsets, lens = tenc.byte_batch(seqs)
+    assert (data.dtype, offsets.dtype, lens.dtype) == (torch.uint8, torch.int64, torch.int32)
+    assert bytes(data.numpy()) == "".join(seqs).encode() and offsets[-1] == data.numel()
+    np.testing.assert_array_equal(lens, [len(s) for s in seqs])
+    got = kernels.transition_features_bytes_plain(data, offsets, lens)
+    assert got.dtype == torch.float32 and got.shape == (len(seqs), tenc.FEATURE_DIM)
+    np.testing.assert_array_equal(got.numpy(), _jax_features(seqs))
+
+
+def test_byte_batch_counts_characters_not_bytes():
+    data, offsets, lens = tenc.byte_batch(["ACGTé", "", "日本"])
+    np.testing.assert_array_equal(offsets, [0, 6, 6, 12])
+    np.testing.assert_array_equal(lens, [5, 0, 2])
+    empty = tenc.byte_batch([])
+    assert empty[0].numel() == 0 and empty[1].tolist() == [0] and empty[2].numel() == 0
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -50,10 +103,7 @@ def test_host_packing_equals_jax(case):
 def test_features_equal_jax_and_reference_loop(case):
     seqs = CASES[case]
     got = _port_features(seqs)
-    codes, n_codes, lens = jenc.seqs_to_code_batch(seqs)
-    want = np.asarray(jenc.features_from_packed(
-        jnp.asarray(jenc.pack_codes(codes)), jnp.asarray(n_codes), jnp.asarray(lens)))
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _jax_features(seqs))
     for i, s in enumerate(seqs):
         if len(s):
             np.testing.assert_allclose(got[i], jenc.reference_matrix_encoding(s),

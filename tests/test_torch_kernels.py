@@ -99,10 +99,11 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     t = [torch.from_numpy(a) for a in [x] + ws + bs]
     assert torch.equal(kernels.conv_head(t[0], t[1:4], t[4:7]),
                        kernels.conv_head_plain(t[0], t[1:4], t[4:7]))
-    packed = torch.from_numpy(rng.integers(0, 256, (3, 16), dtype=np.uint8))
-    n = torch.tensor([64, 10, 0], dtype=torch.int32)
-    assert torch.equal(kernels.transition_features(packed, n, n),
-                       kernels.transition_features_plain(packed, n, n))
+    data = torch.from_numpy(rng.integers(0, 256, 48, dtype=np.uint8))
+    offsets = torch.tensor([0, 30, 40, 48], dtype=torch.int64)
+    lens = torch.tensor([30, 10, 8], dtype=torch.int32)
+    assert torch.equal(kernels.transition_features_bytes(data, offsets, lens),
+                       kernels.transition_features_bytes_plain(data, offsets, lens))
     assert all(v == 0 for v in kernels.LAUNCHES.values())
 
 
