@@ -42,19 +42,26 @@ Phases, each of which must pass:
    for call: 5,000 references of 5-300 kb (357.8 Mbp, seed 7) and 200,000
    reads of 150 bp tiled from the first 100; the port's index build;
 7. the eref slice, the second main path: Phase A (``count_reads_into_table``,
-   k = 32, a 4 GiB count table) and Phase B (``search_references``) with
-   the launch counters reset just before and read just after; every hit
-   a planted reference, and as many hits as the JAX package reported on
-   this world (``benchmarks/phaseb_5kref.json``);
-8. K4 at the main path's shapes: the counts and hashes of real Phase B
-   chunks (the first of each length bucket, and one with pad rows), equal
-   to its plain version, with its time, its bound and the plain time;
-9. where the time goes: Phase A's host reader apart from its update on the
+   k = 32, a 4 GiB count table) and Phase B (``search_references``, one
+   ``scan_chunk`` a chunk) with the launch counters reset just before and
+   read just after; every hit a planted reference, and as many hits as
+   the JAX package reported on this world (``benchmarks/phaseb_5kref.json``);
+   Phase B's peak memory and its host parts (launches, fetches, verdicts);
+8. K4 fused on real chunks: ``scan_chunk`` equal to its plain version on
+   every Phase B chunk; its time on the first chunk of each length bucket
+   and one with pad rows, beside the parent's route (the torch hashing
+   and lookup, then ``good_windows``), the plain version, its byte bound
+   and the floor of its table reads; then ``good_windows`` alone on the
+   counts and hashes of the same chunks, equal to its plain version;
+9. the per-reference scan, ``good_windows``' path: ``scan_reference`` over
+   the planted references with the counters reset just before and read
+   just after, the same verdicts as Phase B;
+10. where the time goes: Phase A's host reader apart from its update on the
    card; Phase B's device time by step and by kernel over a few chunks
    (torch.profiler), and its wall time per chunk;
-10. the eref slice on a small world (k = 20) through ``run_search`` on the
+11. the eref slice on a small world (k = 20) through ``run_search`` on the
    card and on the CPU: byte-identical ``ref_names.txt``;
-11. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
+12. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -111,6 +118,8 @@ KERNELS = {  # name → (CUDA source, the Pallas call it replaces)
                   "palace_tpu/ops/pallas_kernels.py:324"),
     "good_windows": ("palace_tpu_torch/csrc/good_windows.cu",
                      "palace_tpu/ops/pallas_kernels.py:252"),
+    "scan_chunk": ("palace_tpu_torch/csrc/good_windows.cu",
+                   "palace_tpu/ops/pallas_kernels.py:252"),
 }
 SCORING_KERNELS = ("transition_counts", "sage_rounds", "conv_head")
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.float16: "float16"}
@@ -167,6 +176,49 @@ def k1_tiles(offsets, tile: int) -> int:
     bytes has max(1, ceil(len / tile))."""
     lens = offsets.diff()
     return int(torch.where(lens > tile, (lens + tile - 1) // tile, 1).sum())
+
+
+#: Phase B's host parts in the port's GLOBAL_METRICS (search/eref.py)
+HOST_PARTS = ("eref.scan_launch", "eref.scan_fetch", "eref.verdicts")
+#: scan_chunk's integer operations a position: about 40 to hash, 10 to window
+SCAN_OPS = 50
+
+
+def host_parts() -> dict:
+    """Milliseconds so far of Phase B's host parts (``HOST_PARTS``)."""
+    from palace_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    stages = GLOBAL_METRICS.stages
+    return {n: stages[n].seconds * 1e3 if n in stages else 0.0 for n in HOST_PARTS}
+
+
+def scan_bound(positions: int, rows: int, table_reads: int) -> tuple:
+    """scan_chunk's bound: each input byte read once (packed codes and
+    invalid bits, 0.375 B a position; the offsets, 24 B a row; a byte of
+    table a read) and its flags written once (0.125 B a position); its
+    integer operations (``SCAN_OPS`` a position) at the float32 rate, the
+    data sheet having no int32 rate."""
+    nbytes = positions * 3 // 8 + 24 * rows + table_reads + positions // 8
+    return bound(nbytes, SCAN_OPS * positions, torch.float32)
+
+
+def gather_floor_ms(table_reads: int) -> float:
+    """The floor of scan_chunk's table reads: each at a random address of
+    a table no cache holds, so a 32-byte sector from device memory."""
+    return table_reads * 32 / HBM_BYTES_PER_S * 1e3
+
+
+def picked_chunks(chunks: list) -> list:
+    """The Phase B chunks K4 is timed on: the first of each length bucket,
+    and one with pad rows."""
+    picked, seen = [], set()
+    for c in chunks:
+        if c[0] not in seen:
+            seen.add(c[0])
+            picked.append(c)
+    if not any(len(refs) < rows for _, refs, rows in picked):
+        picked += [c for c in chunks if len(c[1]) < c[2]][:1]
+    return picked
 
 
 def make_assembly_contigs(n: int, seed: int) -> list:
@@ -254,6 +306,17 @@ def one_mma_chain(x, weights, biases):
     return x
 
 
+def kernel_name(mangled: str) -> str | None:
+    """The name of a kernel in an anonymous namespace from its mangled
+    name, ``_ZN<n><namespace><m><name>...``."""
+    ns = re.match(r"_ZN(\d+)_GLOBAL__N", mangled)
+    if not ns:
+        return None
+    rest = mangled[ns.start(1) + len(ns.group(1)) + int(ns.group(1)):]
+    n = re.match(r"\d+", rest)
+    return rest[n.end():n.end() + int(n.group())] if n else None
+
+
 def ptxas_summary(log: str) -> list:
     """ptxas -v output → one line per compiled entry: its working dtype
     (and, for K3's tensor-core variants, the input channels and the input
@@ -264,6 +327,8 @@ def ptxas_summary(log: str) -> list:
             name = line.split("'")[1]
             entry = ("bf16" if "bfloat16" in name else "f16" if "__half" in name
                      else "f32" if "IfE" in name else "-")
+            if entry == "-":  # no dtype: the kernel's own name
+                entry = kernel_name(name) or entry
             conv = re.search(r"Li(\d+)ELb([01])ELb([01])E", name)
             if conv:
                 c, i, o = conv.groups()
@@ -374,9 +439,10 @@ class Smoke:
         libs = _build.build_all()
         say(f"built {len(libs)} kernels in {time.perf_counter() - t0:.1f} s "
             f"({' '.join(_build.NVCC_FLAGS)})")
-        for name in libs:
+        for lib in sorted(set(libs.values())):  # kernels of one source share a library
+            name = next(n for n, path in libs.items() if path == lib)
             for line in ptxas_summary(_build.PTXAS_LOG[name]):
-                say(f"  {name} {line}")
+                say(f"  {_build.KERNELS[name][0]} {line}")
         self.check(_build.kernels_built(), "every kernel built for sm_90a")
         say(f"  sage_rounds bf16/f16 dynamic shared memory (csrc/sage_rounds.cu's layout): "
             f"{sage_smem_bytes()} B, 2 blocks an SM")
@@ -718,7 +784,7 @@ class Smoke:
                    f"max |dp| {err:.3g} <= {PROB_ATOL}, spread {np.ptp(want):.3f}")
         self.records["cpu_err_float32"] = err
 
-    # -- phases 6-10: the eref slice ----------------------------------------
+    # -- phases 6-11: the eref slice ----------------------------------------
     def eref_world(self, tmp: Path):
         from palace_tpu_torch.search.index import build_index
 
@@ -739,7 +805,8 @@ class Smoke:
 
     def eref_slice(self, world):
         """The second main path: Phase A and Phase B on the card, counters
-        reset just before and read just after."""
+        reset just before and read just after.  Returns the table and the
+        hits."""
         from palace_tpu_torch.config import KmerParams
         from palace_tpu_torch.ops import kernels
         from palace_tpu_torch.search.eref import (
@@ -757,12 +824,17 @@ class Smoke:
         table = count_reads_into_table([fq], index, params, device=self.dev)
         torch.cuda.synchronize()
         a_s = time.perf_counter() - t0
+        peak_a = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = host_parts()
         t0 = time.perf_counter()
         hits = search_references(table, index, params)
         torch.cuda.synchronize()
         b_s = time.perf_counter() - t0
+        parts = {n: ms - before[n] for n, ms in host_parts().items()}
         launches = dict(kernels.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
+        peak_b = torch.cuda.max_memory_allocated()
+        peak = max(peak_a, peak_b)
         chunks = plan_chunks(index)
         n_chunks = len(chunks)
         total = int(index.lengths.sum())
@@ -771,15 +843,22 @@ class Smoke:
         say(f"  Phase B: {total} positions in {n_chunks} chunks, {b_s:.3f} s, "
             f"{total / b_s / 1e6:.2f} Mpos/s; peak memory {peak / 2**30:.2f} GiB; "
             f"launches {launches}")
+        say(f"  Phase B alone: peak memory {peak_b / 2**30:.3f} GiB (Phase A {peak_a / 2**30:.3f}); "
+            f"host clock: launches {parts['eref.scan_launch']:.2f} ms, fetches "
+            f"{parts['eref.scan_fetch']:.2f} ms, verdicts {parts['eref.verdicts']:.2f} ms")
         scanned = sum(rows * target for target, _, rows in chunks)
-        k4_bound, _ = bound(scanned * (3 + 24) + scanned // 8, 12.0 * scanned, torch.float32)
-        say(f"  K4's bound over this Phase B: {scanned} positions scanned (buckets and pad "
-            f"rows included), {k4_bound:.4f} ms (bytes)")
+        valid = sum(max(0, int(index.lengths[r]) - EREF_K + 1) for _, refs, _ in chunks
+                    for r in refs)
+        b_ms, by = scan_bound(scanned, sum(rows for _, _, rows in chunks), 3 * valid)
+        say(f"  scan_chunk's bound over this Phase B: {scanned} positions scanned (buckets and "
+            f"pad rows included), {valid} k-mers of ACGT: {b_ms:.4f} ms ({by}); the floor of "
+            f"its table reads, a 32-byte sector each: {gather_floor_ms(3 * valid):.4f} ms")
         self.records["eref"] = dict(phase_a_s=a_s, phase_b_s=b_s, peak_bytes=peak,
+                                    phase_b_peak_bytes=peak_b, host_ms=parts,
                                     n_chunks=n_chunks, launches=launches, n_hits=len(hits))
-        self.check(launches["good_windows"] == n_chunks and n_chunks > 0,
-                   f"eref main path launched good_windows once a chunk "
-                   f"({launches['good_windows']} launches, {n_chunks} chunks)")
+        self.check(launches["scan_chunk"] == n_chunks and n_chunks > 0,
+                   f"eref main path launched scan_chunk once a chunk "
+                   f"({launches['scan_chunk']} launches, {n_chunks} chunks)")
         n_plantable = max(1, EREF_REFS // 50)
         self.check(len(hits) > 0 and all(1 <= h.ref_index <= n_plantable for h in hits),
                    f"{len(hits)} hits, every one a planted reference (ref_index 1..{n_plantable})")
@@ -793,7 +872,7 @@ class Smoke:
             secs = time.perf_counter() - t0
             say(f"  Phase B repeat: {secs:.3f} s, {total / secs / 1e6:.2f} Mpos/s, "
                 f"same hits: {[h.line() for h in again] == [h.line() for h in hits]}")
-        return table
+        return table, hits
 
     def phase_a_split(self, world):
         """Phase A's host and device parts apart: the FASTQ reader and packer
@@ -827,6 +906,103 @@ class Smoke:
         self.records["phase_a_split"] = dict(ratio_s=ratio_s, read_s=read_s, batch_ms=ms,
                                              batches=len(packs))
 
+    def scan_chunk_on_real_chunks(self, world, table):
+        """K4 fused on real Phase B chunks: ``scan_chunk`` equal to its plain
+        version on every chunk; then, over the first chunk of each length
+        bucket and one with pad rows, its time (torch.profiler's device time
+        of the kernel, and the wrapper's, whose offsets check synchronizes)
+        beside the parent's route (``chunk_inputs``, then ``good_windows``)
+        and the plain version, its byte bound and the floor of its table
+        reads, and its registers and spills."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.ops import _build, kernels
+        from palace_tpu_torch.ops.window import window_thresholds
+        from palace_tpu_torch.search.eref import DeviceDB, chunk_inputs, chunk_offsets, plan_chunks
+
+        index = world[0]
+        params = KmerParams(k=EREF_K)
+        one_min, three_min = window_thresholds(params.window, params.hit_ratio,
+                                               params.perfect_hit_ratio)
+        db = DeviceDB(index, self.dev)
+        chunks = plan_chunks(index)
+        offs = [torch.from_numpy(chunk_offsets(index, refs, rows)).to(self.dev)
+                for _, refs, rows in chunks]
+        scan_args = (index.perm, index.k)
+        window_args = (params.window, one_min, three_min, params.least_depth)
+
+        def fused(i):
+            return kernels.scan_chunk(db.packed, db.mask, offs[i], table.table, *scan_args,
+                                      chunks[i][0], *window_args)
+
+        def plain(i):
+            return kernels.scan_chunk_plain(db.packed, db.mask, offs[i], table.table,
+                                            *scan_args, chunks[i][0], *window_args)
+
+        def parent(i):
+            target, refs, rows = chunks[i]
+            counts, hashes = chunk_inputs(db, table, target, refs, rows)
+            return kernels.good_windows(counts, hashes, *window_args)
+
+        err, unequal = 0, []
+        for i in range(len(chunks)):
+            got, want = fused(i), plain(i)
+            if not torch.equal(got, want):
+                unequal.append(i)
+                err = max(err, int((got.int() - want.int()).abs().max()))
+        torch.cuda.synchronize()
+        positions = sum(rows * target for target, _, rows in chunks)
+        self.check(not unequal, f"K4 fused scan_chunk equals its plain version on every one of "
+                                f"the {len(chunks)} Phase B chunks ({positions} positions); "
+                                f"unequal: {unequal[:8]}")
+
+        picked = [chunks.index(c) for c in picked_chunks(chunks)]
+        reps = 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for i in picked:
+                    fused(i)
+            torch.cuda.synchronize()
+        kernel_us = [e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "scan_chunk_kernel" in e.name]
+        tot = dict(wrapper_ms=0.0, parent_ms=0.0, plain_ms=0.0, floor=0.0, positions=0, reads=0)
+        for i in picked:
+            target, refs, rows = chunks[i]
+            _, hashes = kernels.scan_counts_plain(db.packed, db.mask, offs[i], table.table,
+                                                  *scan_args, target)
+            reads = int((hashes != 0).sum())
+            del hashes
+            ms = cuda_ms(lambda: fused(i), 20)
+            parent_ms = cuda_ms(lambda: parent(i), 3)
+            plain_ms = cuda_ms(lambda: plain(i), 3)
+            b, _ = scan_bound(rows * target, rows, reads)
+            floor = gather_floor_ms(reads)
+            say(f"    chunk {rows:4d} × {target:7d}: wrapper {ms:.4f} ms  parent's route "
+                f"{parent_ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b:.4f} ms  table-read "
+                f"floor {floor:.4f} ms ({reads} reads)")
+            for key, v in (("wrapper_ms", ms), ("parent_ms", parent_ms), ("plain_ms", plain_ms),
+                           ("floor", floor), ("positions", rows * target), ("reads", reads)):
+                tot[key] += v
+        b, by = scan_bound(tot["positions"], sum(chunks[i][2] for i in picked), tot["reads"])
+        kernel_ms = sum(kernel_us) / 1e3 / reps if kernel_us else None
+        regs = [line for line in ptxas_summary(_build.PTXAS_LOG.get("scan_chunk", ""))
+                if line.startswith("scan_chunk_kernel")]
+        say(f"  scan_chunk over {len(picked)} chunks, {tot['positions']} positions, "
+            f"{tot['reads']} table reads: kernel "
+            + (f"{kernel_ms:.4f} ms (profiler, {len(kernel_us)} launches / {reps})"
+               if kernel_ms is not None else "not measured (the profiler saw no device events)")
+            + f", wrapper {tot['wrapper_ms']:.4f} ms, parent's route {tot['parent_ms']:.4f} ms, "
+            f"plain {tot['plain_ms']:.4f} ms, bound {b:.4f} ms ({by}), table-read floor "
+            f"{tot['floor']:.4f} ms; ptxas: {'; '.join(regs) or 'no log'}")
+        self.records["scan_chunk"] = dict(
+            dtype="packed phagedb in, uint8 flags out", max_abs_err=float(err),
+            ms=kernel_ms if kernel_ms is not None else tot["wrapper_ms"],
+            wrapper_ms=tot["wrapper_ms"], parent_ms=tot["parent_ms"], plain_ms=tot["plain_ms"],
+            bound=(b, by), table_read_floor_ms=tot["floor"], library_ms=None,
+            chunks=len(picked), all_chunks=len(chunks))
+
     def k4_at_main_shapes(self, world, table):
         """K4 on the counts and hashes of real Phase B chunks: the first
         chunk of each length bucket, and a chunk with pad rows."""
@@ -839,14 +1015,7 @@ class Smoke:
         params = KmerParams(k=EREF_K)
         one_min, three_min = window_thresholds(params.window, params.hit_ratio,
                                                params.perfect_hit_ratio)
-        chunks = plan_chunks(index)
-        picked, seen = [], set()
-        for c in chunks:
-            if c[0] not in seen:
-                seen.add(c[0])
-                picked.append(c)
-        if not any(len(refs) < rows for _, refs, rows in picked):
-            picked += [c for c in chunks if len(c[1]) < c[2]][:1]
+        picked = picked_chunks(plan_chunks(index))
         self.check(any(len(refs) < rows for _, refs, rows in picked),
                    "the checked chunks include one with pad rows")
         db = DeviceDB(index, self.dev)
@@ -889,30 +1058,117 @@ class Smoke:
             plain_ms=tot["plain_ms"], bound=(tot["bound"], "bytes"), library_ms=None,
             chunks=len(picked))
 
+    def per_reference_scan(self, world, table, hits):
+        """``good_windows``' own path: ``scan_reference`` over each planted
+        reference's counts and hashes (``chunk_inputs`` of a chunk of one),
+        with the counters reset just before and read just after; its
+        verdicts are Phase B's."""
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.ops.window import bucket_len, scan_reference
+        from palace_tpu_torch.search.eref import DeviceDB, chunk_inputs
+
+        index = world[0]
+        params = KmerParams(k=EREF_K)
+        db = DeviceDB(index, self.dev)
+        n = max(1, EREF_REFS // 50)  # the planted references
+        inputs = []
+        for r in range(n):
+            L = int(index.lengths[r])
+            counts, hashes = chunk_inputs(db, table, bucket_len(L), [r], 1)
+            inputs.append((r, L, counts[0, :L], hashes[0, :L]))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = [scan_reference(c, h, r + 1, L, params.window, params.hit_ratio,
+                              params.perfect_hit_ratio, params.min_cover_ratio,
+                              params.least_depth, device=self.dev) for r, L, c, h in inputs]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        lines = [g.line() for g in got if g is not None]
+        self.records["per_reference"] = dict(launches=launches, refs=n, n_hits=len(lines))
+        say(f"  scan_reference over {n} references: {len(lines)} hits; launches {launches}")
+        self.check(lines == [h.line() for h in hits if h.ref_index <= n],
+                   f"scan_reference's {len(lines)} verdicts are Phase B's on refs 1..{n}")
+        self.check(launches["good_windows"] == n,
+                   f"per-reference path launched good_windows once a reference "
+                   f"({launches['good_windows']} launches, {n} references)")
+
     def phase_b_profile(self, world, table):
-        """Device time by step (the port's profiler spans) and by kernel over
-        a few full Phase B chunks, and the host's time per chunk."""
+        """Phase B's time apart: one whole ``search_references`` under
+        torch.profiler, its device time by kernel and in the ``eref.scan``
+        span beside the host's launches, fetches and verdicts (the port's
+        GLOBAL_METRICS); then the wall and device time a chunk of the
+        fused route over the largest chunks."""
         from torch.profiler import ProfilerActivity, profile, record_function
 
         from palace_tpu_torch.config import KmerParams
         from palace_tpu_torch.ops import kernels
         from palace_tpu_torch.ops.window import window_thresholds
-        from palace_tpu_torch.search.eref import DeviceDB, chunk_inputs, plan_chunks
+        from palace_tpu_torch.search.eref import (
+            DeviceDB,
+            chunk_offsets,
+            plan_chunks,
+            search_references,
+        )
 
         index = world[0]
         params = KmerParams(k=EREF_K)
+
+        def device_ms(prof):
+            """Device time by step (the eref.* spans) and by kernel."""
+            spans, by_kernel = {}, {}
+            for e in prof.key_averages():
+                dev_us = getattr(e, "device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(e, "cuda_time_total", 0.0)
+                if e.key.startswith("eref."):
+                    spans[e.key] = dev_us / 1e3
+            for e in prof.events():
+                # the spans also show on the device's timeline: count kernels only
+                if (e.device_type == torch.autograd.DeviceType.CUDA
+                        and not e.name.startswith("eref.")):
+                    ms, calls = by_kernel.get(e.name, (0.0, 0))
+                    by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+            return spans, by_kernel
+
+        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        before = host_parts()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            search_references(table, index, params)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        parts = {n: ms - before[n] for n, ms in host_parts().items()}
+        spans, by_kernel = device_ms(prof)
+        if not by_kernel:
+            say("  device time: not measured (the profiler saw no device events)")
+            return
+        busy = sum(ms for ms, _ in by_kernel.values())
+        say(f"  one Phase B under the profiler: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+            f"({100 * busy / wall_ms:.1f}%), eref.scan span {spans.get('eref.scan', 0.0):.2f} "
+            f"ms; host clock: launches {parts['eref.scan_launch']:.2f} ms (each waits for "
+            f"the offsets check), fetches {parts['eref.scan_fetch']:.2f} ms, verdicts "
+            f"{parts['eref.verdicts']:.2f} ms; by kernel (ms, calls):")
+        for name, (ms, calls) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]:
+            say(f"    {ms:9.3f}  {calls:5d}  {name[:90]}")
+        self.records["phase_b_split"] = dict(wall_ms=wall_ms, busy_ms=busy, spans=spans,
+                                             host_ms=parts)
+
         one_min, three_min = window_thresholds(params.window, params.hit_ratio,
                                                params.perfect_hit_ratio)
         chunks = sorted(plan_chunks(index), key=lambda c: -c[2] * c[0])[:PROFILE_CHUNKS]
         db = DeviceDB(index, self.dev)
+        offs = [torch.from_numpy(chunk_offsets(index, refs, rows)).to(self.dev)
+                for _, refs, rows in chunks]
 
         def run():
             bits = []
-            for target, refs, rows in chunks:
-                counts, hashes = chunk_inputs(db, table, target, refs, rows)
-                with record_function("eref.good_windows"):
-                    bits.append(kernels.good_windows(counts, hashes, params.window, one_min,
-                                                     three_min))
+            for (target, _, _), o in zip(chunks, offs):
+                with record_function("eref.scan"):
+                    bits.append(kernels.scan_chunk(db.packed, db.mask, o, table.table,
+                                                   index.perm, index.k, target, params.window,
+                                                   one_min, three_min, params.least_depth))
             return [b.cpu() for b in bits]
 
         run()
@@ -920,34 +1176,16 @@ class Smoke:
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        positions = sum(rows * target for target, _, rows in chunks)
-        say(f"  {len(chunks)} chunks, {positions} positions: wall {wall_ms:.2f} ms unprofiled, "
-            f"{wall_ms / len(chunks):.2f} ms a chunk")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             run()
             torch.cuda.synchronize()
-        spans, kernels_ms = {}, {}
-        for e in prof.key_averages():
-            dev_us = getattr(e, "device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "cuda_time_total", 0.0)
-            if e.key.startswith("eref."):
-                spans[e.key] = dev_us / 1e3
-        for e in prof.events():
-            # the spans also show on the device's timeline: count kernels only
-            if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("eref."):
-                ms, calls = kernels_ms.get(e.name, (0.0, 0))
-                kernels_ms[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
-        if not kernels_ms:
-            say("  device time: not measured (the profiler saw no device events)")
-            return
-        busy = sum(ms for ms, _ in kernels_ms.values())
-        say(f"  device busy {busy:.2f} ms over {len(chunks)} chunks "
-            f"({busy / len(chunks):.3f} ms a chunk); by step (device ms a chunk):")
-        for name in ("eref.gather", "eref.hash", "eref.lookup", "eref.good_windows"):
-            say(f"    {spans.get(name, 0.0) / len(chunks):9.3f}  {name}")
-        say("  by kernel (ms a chunk, calls):")
-        for name, (ms, calls) in sorted(kernels_ms.items(), key=lambda kv: -kv[1][0])[:12]:
+        spans, by_kernel = device_ms(prof)
+        positions = sum(rows * target for target, _, rows in chunks)
+        busy = sum(ms for ms, _ in by_kernel.values())
+        say(f"  {len(chunks)} chunks, {positions} positions: wall {wall_ms:.2f} ms unprofiled, "
+            f"{wall_ms / len(chunks):.3f} ms a chunk; device busy {busy / len(chunks):.3f} ms a "
+            f"chunk, eref.scan span {spans.get('eref.scan', 0.0) / len(chunks):.3f} ms a chunk")
+        for name, (ms, calls) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]:
             say(f"    {ms / len(chunks):9.3f}  {calls:5d}  {name[:90]}")
         self.records["phase_b_profile"] = dict(spans=spans, busy_ms=busy, chunks=len(chunks),
                                                wall_ms=wall_ms)
@@ -992,12 +1230,14 @@ def run_phases(smoke: Smoke) -> None:
 
 
 def run_eref_phases(smoke: Smoke) -> None:
-    """Phases 6-10 on ``smoke.dev``, in a temporary directory."""
+    """Phases 6-11 on ``smoke.dev``, in a temporary directory."""
     with torch.inference_mode(), tempfile.TemporaryDirectory() as tmp:
         world = smoke.phase("eref world", smoke.eref_world, Path(tmp))
-        table = world and smoke.phase("eref slice", smoke.eref_slice, world)
+        table, hits = (world and smoke.phase("eref slice", smoke.eref_slice, world)) or (None, [])
         if table:
+            smoke.phase("K4 fused on real chunks", smoke.scan_chunk_on_real_chunks, world, table)
             smoke.phase("K4 at the main path's shapes", smoke.k4_at_main_shapes, world, table)
+            smoke.phase("per-reference scan", smoke.per_reference_scan, world, table, hits)
             smoke.phase("where Phase A's time goes", smoke.phase_a_split, world)
             smoke.phase("where Phase B's time goes", smoke.phase_b_profile, world, table)
         del table
@@ -1044,7 +1284,8 @@ def main() -> int:
         return 1
     # each kernel's launches on its own main path
     launches = dict(smoke.records["slice"]["launches"],
-                    good_windows=smoke.records["eref"]["launches"]["good_windows"])
+                    scan_chunk=smoke.records["eref"]["launches"]["scan_chunk"],
+                    good_windows=smoke.records["per_reference"]["launches"]["good_windows"])
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rec = smoke.records[name]

@@ -1,6 +1,14 @@
 // K4: good-window flags of the eref reference scan, bit-packed.  Replaces
 // good_windows_pallas (palace_tpu/ops/pallas_kernels.py) and, on Phase B's
-// path, its XLA twin good_windows_batch (palace_tpu/ops/window.py).
+// path, its XLA twin good_windows_batch (palace_tpu/ops/window.py) together
+// with the unpack, hash and lookup before it (palace_tpu/search/eref.py
+// _scan_body).  Two entries share the window stage:
+//
+//   palace_good_windows  counts and hashes (NB, L, 3) → flags: the one-to-one
+//                        counterpart of good_windows_pallas;
+//   palace_scan_chunk    one Phase B chunk straight from the packed phagedb:
+//                        codes → 3 canonical hashes → 3 count-table reads →
+//                        flags, nothing but the flags in device memory.
 //
 // Per row and position j: a coder hits when its count equals least_depth
 // and its hash is not 0; single = at least one of the 3 coders hits, trio =
@@ -9,22 +17,48 @@
 // j < window), and j is good when single_sum >= one_min and trio_sum >=
 // three_min.  Output: bit j % 8 of byte j / 8, little-endian.
 //
-// Bound on the H100: bytes.  Per position 3 B of counts and 24 B of int64
-// hashes are read and 1/8 B written; the integer work is a few operations.
-// The TPU kernel walks its tiles in order and carries the previous `window`
-// indicators in VMEM; Hopper's blocks run in no order, so each block (one
-// row, kTile positions) reads the `window` positions before its tile again
-// (window / kTile more bytes, 24 % at window 500) and needs nothing from
-// any other block.  The block
-//   1. loads the indicators of [t0 - window, t0 + kTile) into shared memory
-//      as (trio << 16) | single, neighbouring threads on neighbouring
+// The window stage.  The TPU kernel walks its tiles in order and carries
+// the previous `window` indicators in VMEM; Hopper's blocks run in no
+// order, so each block (one row, a tile of positions) also takes the
+// `window` positions before its tile and needs nothing from any other
+// block.  The block
+//   1. puts the indicators of [t0 - window, t0 + tile) into shared memory as
+//      (trio << 16) | single, neighbouring threads on neighbouring
 //      positions, so one scan serves both sums;
 //   2. scans them in place: kItems consecutive entries a thread, warp
 //      shuffles, then the 8 warp totals;
 //   3. takes win[j] = cs[window + j] - cs[j] and packs 32 flags a warp with
 //      __ballot_sync, lanes 0-3 storing its four bytes.
-// Sums stay below kTile + window < 65536, so the two 16-bit fields never
+// Sums stay below tile + window < 65536, so the two 16-bit fields never
 // carry into each other.
+//
+// palace_good_windows is bound by bytes: 3 B of counts and 24 B of int64
+// hashes read a position; its 2048-position tile rereads window / tile of
+// them (24 % at window 500).
+//
+// palace_scan_chunk reads 0.375 B a position of packed phagedb (2-bit codes
+// and the invalid bit) and writes 0.125 B of flags; what bounds it is the
+// table: three 1-byte reads a valid position at random addresses of a
+// 2^k-byte table (4 GiB at k = 32) that no cache holds, each a 32-byte
+// sector from device memory.  So every thread hashes kBatch positions (3
+// hashes each) before it reads any count, and a block's 24 × 256 reads are
+// in flight together; a hash of 0 reads nothing.  Step 1 becomes:
+//   1a. the block's codes as three bit-planes in shared memory, bit t of
+//       word w for position 32 w + t: lo and hi (the code's two bits; A=0,
+//       C=1, G=2, T=3) and invalid (the mask bit, or at or past ref_len);
+//   1b. for each position, the k-bit windows of the planes by a funnel
+//       shift; the coders are planes of their own (coder0 = ~(lo ^ hi),
+//       coder1 = ~hi, coder2 = ~lo; complemented: coder0, hi, lo), and slot
+//       i's forward hash is brev32(OR_c win_c & F[i][c]) >> (32 - k), its
+//       reverse complement OR_c wincomp_c & R[i][c] with no reversal, for
+//       the host's masks F[i][c] (bit z: perm[z][i] == c) and R[i][c]
+//       (bit p: perm[k-1-p][i] == c).
+// The window's halo repeats the hashes and table reads of the `window`
+// positions before a tile.  Of the two ways out, a larger tile or a second
+// pass over 2-bit indicators in device memory, this takes the larger tile:
+// 8192 positions, so 6 % more reads at window 500 (24 % at 2048), one
+// launch a chunk, and no indicator round trip; a 4.19 M-position chunk
+// still makes 512 blocks for the card's 132 SMs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,36 +68,17 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 8;
 constexpr int kChunk = kThreads * kItems;  // entries scanned a pass
-constexpr int kTile = 2048;                // positions a block
+constexpr int kTile = 2048;                // good_windows: positions a block
+constexpr int kScanTile = 8192;            // scan_chunk: positions a block
+constexpr int kBatch = 8;                  // scan_chunk: positions a thread hashes a round
 
-__global__ void __launch_bounds__(kThreads) good_windows_kernel(
-    const uint8_t* __restrict__ counts, const int64_t* __restrict__ hashes,
-    uint8_t* __restrict__ out, int L, int window, int one_min, int three_min,
-    int least_depth) {
-  extern __shared__ int cs[];  // kTile + window entries
-  __shared__ int warp_sums[kWarps];
-  const int row = blockIdx.y;
-  const int t0 = blockIdx.x * kTile;
-  const int n_ext = kTile + window;
-  const long long ext0 = (long long)t0 - window;  // position of entry 0
-  const size_t row_off = (size_t)row * L;
-
-  // 1. indicators of the extended range
-  for (int i = threadIdx.x; i < n_ext; i += kThreads) {
-    const long long pos = ext0 + i;
-    int v = 0;
-    if (pos >= 0 && pos < L) {
-      const size_t e = (row_off + (size_t)pos) * 3;
-      int n = 0;
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        n += (counts[e + c] == least_depth) & (hashes[e + c] != 0);
-      v = (n > 0 ? 1 : 0) | (n == 3 ? 1 << 16 : 0);
-    }
-    cs[i] = v;
-  }
-  __syncthreads();
-
+// The window stage, steps 2-3, over cs[0, n_ext) that step 1 filled (and a
+// __syncthreads made visible): tile positions from t0, flags of those below
+// L written to orow, the row's L / 8 output bytes.
+template <int Tile>
+__device__ __forceinline__ void window_flags(int* cs, int* warp_sums, int n_ext, int t0,
+                                             int L, int window, int one_min, int three_min,
+                                             uint8_t* __restrict__ orow) {
   // 2. inclusive scan of cs[0, n_ext) in passes of kChunk entries
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int carry = 0;
@@ -99,8 +114,7 @@ __global__ void __launch_bounds__(kThreads) good_windows_kernel(
   }
 
   // 3. windowed sums, thresholds, 32 flags a warp
-  uint8_t* orow = out + (size_t)row * (L / 8);
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {
+  for (int j = threadIdx.x; j < Tile; j += kThreads) {
     const int pos = t0 + j;
     bool good = false;
     if (pos < L) {
@@ -113,20 +127,195 @@ __global__ void __launch_bounds__(kThreads) good_windows_kernel(
   }
 }
 
+__device__ __forceinline__ int indicator(int hits) {
+  return (hits > 0 ? 1 : 0) | (hits == 3 ? 1 << 16 : 0);
+}
+
+__global__ void __launch_bounds__(kThreads) good_windows_kernel(
+    const uint8_t* __restrict__ counts, const int64_t* __restrict__ hashes,
+    uint8_t* __restrict__ out, int L, int window, int one_min, int three_min,
+    int least_depth) {
+  extern __shared__ int cs[];  // kTile + window entries
+  __shared__ int warp_sums[kWarps];
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * kTile;
+  const int n_ext = kTile + window;
+  const long long ext0 = (long long)t0 - window;  // position of entry 0
+  const size_t row_off = (size_t)row * L;
+
+  // 1. indicators of the extended range
+  for (int i = threadIdx.x; i < n_ext; i += kThreads) {
+    const long long pos = ext0 + i;
+    int n = 0;
+    if (pos >= 0 && pos < L) {
+      const size_t e = (row_off + (size_t)pos) * 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        n += (counts[e + c] == least_depth) & (hashes[e + c] != 0);
+    }
+    cs[i] = indicator(n);
+  }
+  __syncthreads();
+  window_flags<kTile>(cs, warp_sums, n_ext, t0, L, window, one_min, three_min,
+                      out + (size_t)row * (L / 8));
+}
+
+// Host-made coder masks, [slot][coder]: f has bit z set iff perm[z][slot] ==
+// coder, r bit p iff perm[k-1-p][slot] == coder (ops/kmer.py coder_masks).
+struct CoderMasks {
+  uint32_t f[3][3];
+  uint32_t r[3][3];
+};
+
+// bits 0, 2, 4, ... of x → bits 0, 1, 2, ...
+__device__ __forceinline__ uint32_t even_bits(uint64_t x) {
+  x &= 0x5555555555555555ull;
+  x = (x | (x >> 1)) & 0x3333333333333333ull;
+  x = (x | (x >> 2)) & 0x0F0F0F0F0F0F0F0Full;
+  x = (x | (x >> 4)) & 0x00FF00FF00FF00FFull;
+  x = (x | (x >> 8)) & 0x0000FFFF0000FFFFull;
+  x = (x | (x >> 16)) & 0x00000000FFFFFFFFull;
+  return (uint32_t)x;
+}
+
+// Words of one bit-plane a block of scan_chunk may need: its k-mers start in
+// [t0 - window, t0 + kScanTile) and end k - 1 ≤ 31 positions later, and the
+// funnel shift reads one word past the last.
+__host__ __device__ constexpr int plane_words(int window) {
+  return (kScanTile + window + 64) / 32 + 4;
+}
+
+__global__ void __launch_bounds__(kThreads) scan_chunk_kernel(
+    const uint8_t* __restrict__ packed, const uint8_t* __restrict__ mask,
+    const int64_t* __restrict__ offsets, const uint8_t* __restrict__ table,
+    const CoderMasks cm, uint8_t* __restrict__ out, int target, int k, int window,
+    int one_min, int three_min, int least_depth) {
+  extern __shared__ int cs[];  // kScanTile + window entries, then the planes
+  __shared__ int warp_sums[kWarps];
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * kScanTile;
+  const int n_ext = kScanTile + window;
+  const int e0 = t0 - window;  // position of entry 0
+  const int64_t code_off = offsets[3 * row], mask_off = offsets[3 * row + 1];
+  // positions at or past ref_len are code 4 (the slice's tail may hold the
+  // next reference), so k-mers may be valid only where they start before
+  // len - k + 1
+  const int len = (int)min((long long)offsets[3 * row + 2], (long long)target);
+  const int ea = max(e0, 0), eb = min(t0 + kScanTile, len - k + 1);
+  const int nw = plane_words(window);
+  uint32_t* lo_p = reinterpret_cast<uint32_t*>(cs + n_ext);
+  uint32_t* hi_p = lo_p + nw;
+  uint32_t* inv_p = hi_p + nw;
+  const int wbase = ea >> 5;  // first plane word: position 32 wbase
+
+  // 1a. bit-planes of the positions [32 wbase, 32 (wbase + nw))
+  if (eb > ea) {
+    for (int w = threadIdx.x; w < nw; w += kThreads) {
+      const int p = (wbase + w) * 32;
+      uint64_t code = 0;
+      uint32_t inv = 0xffffffffu;
+      if (p < len) {
+        const int nb = min(32, len - p);  // positions of the word inside the reference
+        const uint8_t* cb = packed + code_off + p / 4;
+        const uint8_t* mb = mask + mask_off + p / 8;
+        for (int b = 0; b < (nb + 3) / 4; ++b) code |= (uint64_t)cb[b] << (8 * b);
+        uint32_t m = 0;
+        for (int b = 0; b < (nb + 7) / 8; ++b) m |= (uint32_t)mb[b] << (8 * b);
+        inv = m | (nb == 32 ? 0u : 0xffffffffu << nb);
+      }
+      lo_p[w] = even_bits(code);
+      hi_p[w] = even_bits(code >> 1);
+      inv_p[w] = inv;
+    }
+  }
+  __syncthreads();
+
+  // 1b. indicators of [e0, t0 + kScanTile): kBatch positions a thread hashed,
+  // then their 3 kBatch table reads issued together, then counted
+  const uint32_t kmask = k == 32 ? 0xffffffffu : (1u << k) - 1u;
+  for (int i0 = threadIdx.x; i0 < n_ext; i0 += kThreads * kBatch) {
+    uint32_t h[kBatch][3];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int pos = e0 + i0 + b * kThreads;
+      h[b][0] = h[b][1] = h[b][2] = 0;
+      if (pos >= ea && pos < eb) {
+        const int q = pos - 32 * wbase;
+        const int w = q >> 5, s = q & 31;
+        const uint32_t inv = __funnelshift_r(inv_p[w], inv_p[w + 1], s);
+        if ((inv & kmask) == 0) {
+          const uint32_t lo = __funnelshift_r(lo_p[w], lo_p[w + 1], s);
+          const uint32_t hi = __funnelshift_r(hi_p[w], hi_p[w + 1], s);
+          const uint32_t c0 = ~(lo ^ hi), c1 = ~hi, c2 = ~lo;
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            const uint32_t x = (c0 & cm.f[i][0]) | (c1 & cm.f[i][1]) | (c2 & cm.f[i][2]);
+            const uint32_t fwd = __brev(x) >> (32 - k);
+            const uint32_t rc = (c0 & cm.r[i][0]) | (hi & cm.r[i][1]) | (lo & cm.r[i][2]);
+            h[b][i] = min(fwd, rc);
+          }
+        }
+      }
+    }
+    uint32_t cnt[kBatch][3];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        cnt[b][i] = h[b][i] ? __ldg(table + (size_t)h[b][i]) : 0u;
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * kThreads;
+      int n = 0;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) n += (h[b][s] != 0) & (cnt[b][s] == (uint32_t)least_depth);
+      if (i < n_ext) cs[i] = indicator(n);
+    }
+  }
+  __syncthreads();
+  window_flags<kScanTile>(cs, warp_sums, n_ext, t0, target, window, one_min, three_min,
+                          out + (size_t)row * (target / 8));
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, int smem) {
+  if (smem <= 47 * 1024) return 0;  // within the 48 KiB default, with the static warp_sums
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
 }  // namespace
 
 extern "C" int palace_good_windows(const void* counts, const void* hashes, void* out,
                                    int NB, int L, int window, int one_min, int three_min,
                                    int least_depth, void* stream) {
   const int smem = (kTile + window) * (int)sizeof(int);
-  if (smem > 47 * 1024) {  // beyond the 48 KiB default, with the static warp_sums
-    cudaError_t err = cudaFuncSetAttribute(
-        good_windows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (int err = set_smem(good_windows_kernel, smem)) return err;
   const dim3 grid((L + kTile - 1) / kTile, NB);
   good_windows_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)counts, (const int64_t*)hashes, (uint8_t*)out, L, window, one_min,
       three_min, least_depth);
+  return (int)cudaGetLastError();
+}
+
+// coder_masks: 18 uint32, f[slot][coder] then r[slot][coder].  offsets:
+// (rows, 3) int64 code byte offset, mask byte offset, ref_len, each row's
+// target / 4 and target / 8 bytes inside packed and mask (the wrapper checks).
+extern "C" int palace_scan_chunk(const void* packed, const void* mask, const void* offsets,
+                                 const void* table, const void* coder_masks, void* out,
+                                 int rows, int target, int k, int window, int one_min,
+                                 int three_min, int least_depth, void* stream) {
+  CoderMasks cm;
+  const uint32_t* m = (const uint32_t*)coder_masks;
+  for (int i = 0; i < 9; ++i) {
+    cm.f[i / 3][i % 3] = m[i];
+    cm.r[i / 3][i % 3] = m[9 + i];
+  }
+  const int smem = (kScanTile + window) * (int)sizeof(int) + 3 * plane_words(window) * 4;
+  if (int err = set_smem(scan_chunk_kernel, smem)) return err;
+  const dim3 grid((target + kScanTile - 1) / kScanTile, rows);
+  scan_chunk_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)packed, (const uint8_t*)mask, (const int64_t*)offsets,
+      (const uint8_t*)table, cm, (uint8_t*)out, target, k, window, one_min, three_min,
+      least_depth);
   return (int)cudaGetLastError();
 }

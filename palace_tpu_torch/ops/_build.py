@@ -44,6 +44,8 @@ KERNELS = {
                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "good_windows": ("good_windows.cu", "palace_good_windows",
                      [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "scan_chunk": ("good_windows.cu", "palace_scan_chunk",
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -82,29 +84,31 @@ def _library_path(source: str) -> Path:
 
 
 def build_all(names: List[str] | None = None) -> Dict[str, Path]:
-    """Compile the named kernels (default: all) that are not built yet,
-    one ``nvcc`` each, all started together.  Returns name → library.
-    Raises ``RuntimeError`` with the compiler's output on failure."""
+    """Compile the sources of the named kernels (default: all) that are not
+    built yet, one ``nvcc`` a source, all started together.  Returns name →
+    library (kernels of one source share it).  Raises ``RuntimeError``
+    with the compiler's output on failure."""
     names = list(KERNELS) if names is None else names
     out = {n: _library_path(KERNELS[n][0]) for n in names}
-    todo = [n for n in names if not out[n].exists()]
+    todo = sorted({KERNELS[n][0] for n in names if not out[n].exists()})
     procs = []
     if todo:
         build_dir().mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
-        for n in todo:
-            tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc_dir() / KERNELS[n][0])]
-            procs.append((n, tmp, subprocess.Popen(
+        for src in todo:
+            lib = _library_path(src)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc_dir() / src)]
+            procs.append((src, lib, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for n, tmp, proc in procs:
+    for src, lib, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n{log}")
+            failed.append(f"--- {src} (nvcc exit {proc.returncode}) ---\n{log}")
             continue
-        out[n].with_suffix(".log").write_text(log)
-        os.replace(tmp, out[n])
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     for n in names:

@@ -1,5 +1,6 @@
 """The port's CUDA kernels, each beside its plain PyTorch version: the
-scorer's K1-K3 and the eref search's K4.
+scorer's K1-K3 and the eref search's K4 (``good_windows``, and
+``scan_chunk``, which fuses it with the hashing and lookup before it).
 
 Counterpart of ``palace_tpu/ops/pallas_kernels.py``.  Every wrapper
 takes the plain version for tensors on the CPU, and for CUDA tensors
@@ -12,9 +13,12 @@ included, and are the reference the kernels are held to on the card.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import ctypes
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
 from palace_tpu_torch.ops import _build
 from palace_tpu_torch.ops._build import LAUNCHES, reset_launches  # noqa: F401
@@ -27,6 +31,7 @@ from palace_tpu_torch.ops.encoder import (
     NUM_CODES,
     locs_from_codes,
 )
+from palace_tpu_torch.ops.kmer import coder_masks, kmer_hashes_masked, unpack_codes_mask
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -461,4 +466,120 @@ def good_windows(counts: torch.Tensor, hashes: torch.Tensor, window: int,
              one_min, three_min, least_depth, _stream(counts))
     LAUNCHES["good_windows"] += 1
     _build.check("good_windows", err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4 fused: one Phase B chunk from the packed phagedb, hashed, looked up and
+# windowed in one kernel
+# ---------------------------------------------------------------------------
+
+#: positions a block of the fused scan takes (``csrc/good_windows.cu``
+#: ``kScanTile``)
+SCAN_TILE = 8192
+
+
+def scan_counts_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
+                      table: torch.Tensor, perm: np.ndarray, k: int, target: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The counts and hashes, (rows, target, 3) uint8 and int64, that
+    ``good_windows`` scans for one chunk (the inputs of ``scan_chunk``):
+    slice each row's packed codes, unpack, mask the tail past ``ref_len``
+    (it may hold the next reference), hash, pad the last k-1 positions
+    with hash 0, and look the hashes up (hash 0 always reads 0).  A pad
+    row, offsets (0, 0, 0), masks to code 4 everywhere.  The profiler
+    spans ``eref.gather``, ``eref.hash`` and ``eref.lookup`` name the
+    three steps."""
+    dev = packed.device
+    with record_function("eref.gather"):
+        pb = packed[offsets[:, 0:1] + torch.arange(target // 4, device=dev)]
+        mb = mask[offsets[:, 1:2] + torch.arange(target // 8, device=dev)]
+        codes = unpack_codes_mask(pb, mb)
+        codes.masked_fill_(torch.arange(target, device=dev) >= offsets[:, 2:3], 4)
+    with record_function("eref.hash"):
+        hashes = kmer_hashes_masked(codes, perm, k)
+        hashes = torch.nn.functional.pad(hashes, (0, 0, 0, k - 1))
+    with record_function("eref.lookup"):
+        counts = table[hashes].masked_fill_(hashes == 0, 0)
+    return counts, hashes
+
+
+def scan_chunk_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
+                     table: torch.Tensor, perm: np.ndarray, k: int, target: int, window: int,
+                     one_min: int, three_min: int, least_depth: int = 3) -> torch.Tensor:
+    """Plain version of ``scan_chunk``: ``scan_counts_plain``, then
+    ``good_windows_plain`` under the profiler span ``eref.good_windows``."""
+    counts, hashes = scan_counts_plain(packed, mask, offsets, table, perm, k, target)
+    with record_function("eref.good_windows"):
+        return good_windows_plain(counts, hashes, window, one_min, three_min, least_depth)
+
+
+def scan_chunk(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
+               table: torch.Tensor, perm: np.ndarray, k: int, target: int, window: int,
+               one_min: int, three_min: int, least_depth: int = 3) -> torch.Tensor:
+    """Good-window flags of one Phase B chunk, straight from the packed
+    phagedb.
+
+    packed (P,) and mask (Q,) uint8: the phagedb's 2-bit codes and invalid
+    bits (``search/index.py``), padded so that every row's slice fits;
+    offsets (rows, 3) int64: a row's code byte offset, mask byte offset and
+    ref_len, (0, 0, 0) for a pad row; table (2^k,) uint8 counts; perm (k,
+    3) the coder permutation, on the host → (rows, target/8) uint8: the
+    ``good_windows`` flags of ``scan_counts_plain``'s counts and hashes
+    over each row's ``target`` positions, bit j % 8 of byte j // 8.
+
+    Replaces ``good_windows_pallas`` (palace_tpu/ops/pallas_kernels.py)
+    together with the unpack, hash and lookup before it: the JAX
+    package's ``_scan_body`` (palace_tpu/search/eref.py).  Bound on the
+    H100: by bytes, each input byte read once, 0.375 B a position of packed
+    phagedb and 0.125 B of flags, plus 3 B a position of table if each
+    count were read once; in fact every valid position reads 3 counts at
+    random addresses of the 2^k-byte table (4 GiB at k = 32), a 32-byte
+    sector each, and those reads are the floor the design is held to.
+    Design (``csrc/good_windows.cu``): one block takes ``SCAN_TILE``
+    positions of a row and the ``window`` before them; it builds the
+    codes' bit-planes in shared memory, hashes 8 positions a thread with
+    the masks of ``kmer.coder_masks`` (funnel shifts, a bit reversal, no
+    loop over k), issues their 24 table reads together (none for hash 0),
+    and runs ``good_windows``' window stage on the indicators.  No hash or
+    count goes to device memory.  Integer work, so it equals the plain
+    version.
+
+    Both routes check their inputs; the offsets are read back to check
+    them against the buffers, one synchronize a call.
+    """
+    cuda = _same_device("scan_chunk", packed, mask, offsets, table)
+    _require(all(t.dtype == torch.uint8 and t.dim() == 1 and t.is_contiguous()
+                 for t in (packed, mask, table)),
+             "scan_chunk: packed, mask and table must be contiguous uint8 (n,)")
+    _require(offsets.dtype == torch.int64 and offsets.dim() == 2 and offsets.shape[1] == 3,
+             "scan_chunk: offsets must be int64 (rows, 3)")
+    _require(1 <= k <= 32 and table.numel() == 1 << k and np.shape(perm) == (k, 3),
+             "scan_chunk: k must be in [1, 32], the table 2^k bytes and perm (k, 3)")
+    _require(target % 8 == 0 and k <= target <= 1 << 30,
+             "scan_chunk: target must be a multiple of 8 in [k, 2^30]")
+    _require(1 <= window <= GOOD_WINDOWS_MAX_WINDOW,
+             f"scan_chunk: window must be in [1, {GOOD_WINDOWS_MAX_WINDOW}]")
+    rows = offsets.shape[0]
+    _require(rows < 65536, "scan_chunk: at most 65535 rows a launch")
+    if rows:
+        low, high = torch.stack([offsets.amin(0), offsets.amax(0)]).tolist()
+        _require(min(low) >= 0 and high[0] + target // 4 <= packed.numel()
+                 and high[1] + target // 8 <= mask.numel(),
+                 "scan_chunk: offsets and ref_len must be >= 0, and each row's target/4 code "
+                 "bytes and target/8 mask bytes inside packed and mask")
+    if not cuda:
+        return scan_chunk_plain(packed, mask, offsets, table, perm, k, target, window,
+                                one_min, three_min, least_depth)
+    offsets = offsets.contiguous()
+    out = torch.empty(rows, target // 8, dtype=torch.uint8, device=packed.device)
+    if rows == 0:
+        return out
+    masks = (ctypes.c_uint32 * 18)(*coder_masks(perm, k).reshape(-1).tolist())
+    err = _build.entry("scan_chunk")(
+        packed.data_ptr(), mask.data_ptr(), offsets.data_ptr(), table.data_ptr(),
+        ctypes.addressof(masks), out.data_ptr(), rows, target, k, window, one_min, three_min,
+        least_depth, _stream(packed))
+    LAUNCHES["scan_chunk"] += 1
+    _build.check("scan_chunk", err)
     return out

@@ -111,6 +111,23 @@ def kmer_hashes_masked(codes: torch.Tensor, perm: np.ndarray, k: int) -> torch.T
     return h.masked_fill_(~valid[..., None], 0)
 
 
+def coder_masks(perm: np.ndarray, k: int) -> np.ndarray:
+    """The hash as bit masks over coder bit-planes, (2, 3, 3) uint32
+    ``[direction][slot][coder]``: ``[0][i][c]`` has bit z set where
+    ``perm[z, i] == c``, ``[1][i][c]`` bit p where ``perm[k-1-p, i] == c``.
+
+    With ``win_c`` the k bits of coder c from position j (bit z for j+z)
+    and ``comp_c`` those of its complement, slot i's forward hash is the
+    low k bits of ``OR_c win_c & [0][i][c]`` reversed, and its reverse
+    complement is ``OR_c comp_c & [1][i][c]`` as it stands."""
+    perm = np.asarray(perm)[:k]
+    bit = np.uint64(1) << np.arange(k, dtype=np.uint64)
+    coder = np.arange(3)[:, None, None]
+    # (direction, coder, z, slot) one-hot, weighted by bit z, summed over z
+    picks = np.stack([perm == coder, perm[::-1] == coder])
+    return (picks * bit[:, None]).sum(axis=2).transpose(0, 2, 1).astype(np.uint32)
+
+
 def pack_codes_mask(codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Host packing: (B, L) base codes 0..4 (L % 8 == 0) →
     ``(packed (B, L//4) uint8, invalid (B, L//8) uint8)``: 2 bits a base

@@ -10,9 +10,11 @@ and counted on the device (``ops.count_table``).
 
 Phase B (read_index :813-903 + slide_window :504-624): every reference
 position's 3 hashes are looked up; a 500 bp sliding window marks good
-regions (kernel K4); references covered >75 % are reported.  The packed
-phagedb lives on the device; references of one length bucket are
-scanned together in chunks of at most ``CHUNK_POS`` positions.
+regions; references covered >75 % are reported.  The packed phagedb
+lives on the device; references of one length bucket are scanned
+together in chunks of at most ``CHUNK_POS`` positions, each by one
+launch of ``kernels.scan_chunk`` (K4 fused with the unpack, hashing and
+lookup before it).
 
 Down-sampling: the reference samples reads with C ``rand()`` seeded 1
 (:1238-1242, :374).  When the input is ≤ 2 Gbp the ratio is ≥100 and
@@ -35,12 +37,7 @@ from palace_tpu_torch.device import resolve_device
 from palace_tpu_torch.io.fasta import iter_fastq
 from palace_tpu_torch.ops import kernels
 from palace_tpu_torch.ops.count_table import CountTable
-from palace_tpu_torch.ops.kmer import (
-    BASE_LUT,
-    kmer_hashes_masked,
-    pack_codes_mask,
-    unpack_codes_mask,
-)
+from palace_tpu_torch.ops.kmer import BASE_LUT, pack_codes_mask
 from palace_tpu_torch.ops.window import (
     RefHit,
     bucket_len,
@@ -191,61 +188,74 @@ class DeviceDB:
     chunk reads past a reference's start."""
 
     def __init__(self, index: PhageIndex, device: torch.device):
-        targets = [bucket_len(int(L)) for L in index.lengths]
-        slack = max(targets, default=0)
+        slack = max((bucket_len(int(L)) for L in index.lengths), default=0)
         self.index = index
-        self.packed = torch.from_numpy(np.pad(index.packed, (0, slack // 4))).to(device)
-        self.mask = torch.from_numpy(np.pad(index.maskbits, (0, slack // 8))).to(device)
+        self.packed = self._padded(index.packed, slack // 4, device)
+        self.mask = self._padded(index.maskbits, slack // 8, device)
+
+    @staticmethod
+    def _padded(a: np.ndarray, pad: int, device: torch.device) -> torch.Tensor:
+        """``a`` followed by ``pad`` zero bytes on ``device``, with no
+        padded copy on the host."""
+        out = torch.zeros(a.shape[0] + pad, dtype=torch.uint8, device=device)
+        out[:a.shape[0]].copy_(torch.from_numpy(a))
+        return out
+
+
+def chunk_offsets(index: PhageIndex, refs: List[int], rows: int) -> np.ndarray:
+    """A chunk's (rows, 3) int64 offsets, as ``kernels.scan_chunk`` takes
+    them: each reference's code byte offset, mask byte offset and length,
+    then (0, 0, 0) for each pad row."""
+    offs = np.zeros((rows, 3), np.int64)
+    r = np.asarray(refs, np.int64)
+    offs[:len(refs)] = np.stack([index.code_offsets[r], index.mask_offsets[r],
+                                 index.lengths[r]], axis=1)
+    return offs
 
 
 def chunk_inputs(db: DeviceDB, table: CountTable, target: int, refs: List[int], rows: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The counts and hashes, (rows, target, 3) uint8 and int64, that K4
-    scans for one chunk: slice each reference's packed codes, unpack, mask
-    the tail past ``ref_len`` (it may hold the next reference), hash, pad
-    the last k-1 positions with hash 0, and look the hashes up (hash 0
-    always reads 0).  Empty pad rows mask to code 4 everywhere.  The
-    profiler spans ``eref.gather``, ``eref.hash`` and ``eref.lookup`` name
-    the three steps."""
-    index, dev = db.index, db.packed.device
-    pad = rows - len(refs)
-    with record_function("eref.gather"):
-        offs = torch.tensor([[int(index.code_offsets[r]), int(index.mask_offsets[r]),
-                              int(index.lengths[r])] for r in refs] + [[0, 0, 0]] * pad,
-                            dtype=torch.int64).to(dev)
-        pb = db.packed[offs[:, 0:1] + torch.arange(target // 4, device=dev)]
-        mb = db.mask[offs[:, 1:2] + torch.arange(target // 8, device=dev)]
-        codes = unpack_codes_mask(pb, mb)
-        codes.masked_fill_(torch.arange(target, device=dev) >= offs[:, 2:3], 4)
-    with record_function("eref.hash"):
-        hashes = kmer_hashes_masked(codes, index.perm, index.k)
-        hashes = torch.nn.functional.pad(hashes, (0, 0, 0, index.k - 1))
-    with record_function("eref.lookup"):
-        counts = table.lookup(hashes)
-    return counts, hashes
+    """The counts and hashes, (rows, target, 3) uint8 and int64, of one
+    chunk (``kernels.scan_counts_plain``): what K4's ``good_windows``
+    scans, and what ``scan_chunk`` keeps out of device memory."""
+    offs = torch.from_numpy(chunk_offsets(db.index, refs, rows)).to(db.packed.device)
+    return kernels.scan_counts_plain(db.packed, db.mask, offs, table.table, db.index.perm,
+                                     db.index.k, target)
 
 
 def search_references(table: CountTable, index: PhageIndex, params: KmerParams) -> List[RefHit]:
     """Phase B on the table's device: scan every reference and return the
-    hits in reference order.  Every chunk is launched before any result is
-    fetched; each returns its good flags packed 8 positions a byte (K4,
-    under the profiler span ``eref.good_windows``)."""
+    hits in reference order.  Every chunk's offsets go to the device in
+    one copy, and every chunk is launched before any result is fetched:
+    ``kernels.scan_chunk`` under the profiler span ``eref.scan`` returns
+    its good flags packed 8 positions a byte.  ``GLOBAL_METRICS`` keeps
+    the host's three parts apart: the launches (``eref.scan_launch``),
+    the fetches, which wait for the card (``eref.scan_fetch``), and the
+    verdicts on the flags (``eref.verdicts``)."""
     t0 = time.perf_counter()
     one_min, three_min = window_thresholds(params.window, params.hit_ratio,
                                            params.perfect_hit_ratio)
     db = DeviceDB(index, table.device)
-    launched = []
-    for target, refs, rows in plan_chunks(index):
-        counts, hashes = chunk_inputs(db, table, target, refs, rows)
-        with record_function("eref.good_windows"):
-            bits = kernels.good_windows(counts, hashes, params.window, one_min, three_min,
-                                        params.least_depth)
-        del counts, hashes
+    chunks = plan_chunks(index)
+    offs = np.concatenate([np.zeros((0, 3), np.int64)]
+                          + [chunk_offsets(index, refs, rows) for _, refs, rows in chunks])
+    offs = torch.from_numpy(offs).to(db.packed.device)
+    launched, row0 = [], 0
+    for target, refs, rows in chunks:
+        with record_function("eref.scan"):
+            bits = kernels.scan_chunk(db.packed, db.mask, offs[row0:row0 + rows], table.table,
+                                      index.perm, index.k, target, params.window, one_min,
+                                      three_min, params.least_depth)
         launched.append((refs, bits))
+        row0 += rows
+    t1 = time.perf_counter()
 
     hits: List[RefHit] = []
+    fetch_s = 0.0
     for refs, bits in launched:
+        t = time.perf_counter()
         bits_host = bits.cpu().numpy()
+        fetch_s += time.perf_counter() - t
         for row, r in enumerate(refs):
             ref_len = int(index.lengths[r])
             hit = hit_from_good(unpack_good(bits_host[row], ref_len), r + 1, ref_len,
@@ -253,8 +263,12 @@ def search_references(table: CountTable, index: PhageIndex, params: KmerParams) 
             if hit is not None:
                 hits.append(hit)
     hits.sort(key=lambda h: h.ref_index)
-    GLOBAL_METRICS.record("eref.scan_refs", time.perf_counter() - t0,
-                          items=index.n_refs, unit="refs")
+    t2 = time.perf_counter()
+    positions = float(sum(rows * target for target, _, rows in chunks))
+    GLOBAL_METRICS.record("eref.scan_launch", t1 - t0, items=len(chunks), unit="chunks")
+    GLOBAL_METRICS.record("eref.scan_fetch", fetch_s, items=positions, unit="positions")
+    GLOBAL_METRICS.record("eref.verdicts", t2 - t1 - fetch_s, items=index.n_refs, unit="refs")
+    GLOBAL_METRICS.record("eref.scan_refs", t2 - t0, items=index.n_refs, unit="refs")
     return hits
 
 

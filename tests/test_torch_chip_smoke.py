@@ -73,6 +73,25 @@ def test_ptxas_summary_names_the_conv_head_variants():
     ]
 
 
+def test_ptxas_summary_names_an_entry_without_a_dtype_by_its_kernel():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN48_GLOBAL__N__48915f66_15_good_windows_cu_e244ca9817scan_chunk_kernelEPKhS1_PKlS1_"
+        "NS_10CoderMasksEPhiiiiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 32 bytes smem",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119good_windows_kernelEPKhPKlPhiiiii' for 'sm_90a'",
+        "ptxas info    : Used 33 registers, used 1 barriers, 32 bytes smem",
+    ])
+    assert chip_smoke.ptxas_summary(log) == [
+        "scan_chunk_kernel: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "scan_chunk_kernel: Used 40 registers, used 1 barriers, 32 bytes smem",
+        "good_windows_kernel: Used 33 registers, used 1 barriers, 32 bytes smem",
+    ]
+    assert chip_smoke.kernel_name("_Z6kernelIfEvPKT_") is None
+
+
 def test_make_contigs():
     uniform = chip_smoke.make_contigs(3, 500, seed=1)
     assert [n for n, _ in uniform] == ["contig_0", "contig_1", "contig_2"]
@@ -172,11 +191,17 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
     chip_smoke.run_eref_phases(smoke)
     assert smoke.failures[:3] == [f"main path launched {name} (0 times)"
                                   for name in chip_smoke.SCORING_KERNELS]
-    assert len(smoke.failures) == 4
-    assert smoke.failures[3].startswith("eref main path launched good_windows once a chunk (0 ")
+    assert len(smoke.failures) == 5
+    assert smoke.failures[3].startswith("eref main path launched scan_chunk once a chunk (0 ")
+    assert smoke.failures[4].startswith("per-reference path launched good_windows once a "
+                                        "reference (0 ")
     assert {"transition_counts", "sage_rounds", "conv_head", "slice", "eref",
-            "good_windows", "transition_counts_assembly", "slice_float32",
-            "host_step", "transition_counts_low_complexity"} <= set(smoke.records)
+            "good_windows", "scan_chunk", "per_reference", "transition_counts_assembly",
+            "slice_float32", "host_step", "transition_counts_low_complexity"} <= set(smoke.records)
     assert smoke.records["slice_err_float32"] <= chip_smoke.PROB_ATOL
     assert smoke.records["eref"]["n_hits"] == 1 and smoke.records["good_windows"]["chunks"] >= 2
-    assert set(chip_smoke.KERNELS) == set(chip_smoke.SCORING_KERNELS) | {"good_windows"}
+    assert smoke.records["per_reference"]["n_hits"] == 1
+    assert smoke.records["scan_chunk"]["max_abs_err"] == 0
+    assert smoke.records["scan_chunk"]["all_chunks"] >= smoke.records["scan_chunk"]["chunks"] >= 2
+    assert set(chip_smoke.KERNELS) == set(chip_smoke.SCORING_KERNELS) | {"good_windows",
+                                                                          "scan_chunk"}

@@ -347,3 +347,115 @@ def test_card_count_table_and_scan_reference_equal_cpu(cuda):
     assert kernels.LAUNCHES["good_windows"] == before + 1
     want = scan_reference(counts, hashes, **kw, device="cpu")
     assert got is not None and got.line() == want.line()
+
+
+def _random_table(k, seed):
+    """A 2^k-byte count table on the card (4 GiB at k = 32): counts 0-3,
+    3 in 13 of 16 slots, filled 2^28 bytes at a time."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.empty(1 << k, dtype=torch.uint8, device="cuda")
+    for part in table.split(1 << 28):
+        part.random_(0, 16, generator=g)
+    return table.clamp_(max=3)
+
+
+@pytest.fixture(scope="module")
+def scan_tables():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run "
+                    "pytest --noconftest -m cuda tests/test_torch_cuda.py on the card")
+    tables = {k: _random_table(k, k) for k in (32, 20)}
+    yield tables
+    del tables
+    torch.cuda.empty_cache()
+
+
+def _scan_world(tmp_path, k, target):
+    """A packed phagedb whose references all fit a ``target`` bucket, and
+    its chunk: refs of target and target - 1 positions, one across the
+    second tile's edge, N runs, lower case and IUPAC, refs of k - 1, k and
+    k + 5 positions, then two pad rows."""
+    from palace_tpu_torch.io.fasta import write_fasta
+    from palace_tpu_torch.search import index
+
+    rng = np.random.default_rng(target + k)
+    lens = [target, target - 1, kernels.SCAN_TILE + 1, 9000, k - 1, k, k + 5, 3000, 5000]
+    seqs = [_random_bases(rng, n) for n in lens]
+    seqs[3] = seqs[3][:2000] + "N" * 300 + seqs[3][2300:]
+    seqs[7] = seqs[7].lower()
+    seqs[8] = _random_bases(rng, 5000, "ACGTACGTACGTRYN")
+    db = tmp_path / "db.fa"
+    write_fasta(db, [(f"r{i}", s) for i, s in enumerate(seqs)])
+    idx = index.build_index(db, k=k, save=False)
+    offs = np.zeros((len(seqs) + 2, 3), np.int64)
+    offs[:len(seqs)] = np.stack([idx.code_offsets[:-1], idx.mask_offsets[:-1], idx.lengths],
+                                axis=1)
+    packed = torch.from_numpy(np.pad(idx.packed, (0, target // 4))).to("cuda")
+    mask = torch.from_numpy(np.pad(idx.maskbits, (0, target // 8))).to("cuda")
+    return idx, packed, mask, torch.from_numpy(offs).to("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 20])
+@pytest.mark.parametrize("window", [1, 500, kernels.SCAN_TILE + 1])
+def test_card_scan_chunk_equal_plain(cuda, scan_tables, tmp_path, k, window):
+    """The fused scan against its plain version on the card: a real 4 GiB
+    table at k = 32, windows of 1, 500 and one above the block's tile, pad
+    rows and edge rows; one launch a call."""
+    target = 12288  # one and a half tiles
+    idx, packed, mask, offs = _scan_world(tmp_path, k, target)
+    one_min, three_min = (1, 1) if window == 1 else (int(0.9 * window), int(0.5 * window))
+    args = (idx.perm, k, target, window, one_min, three_min, 3)
+    before = kernels.LAUNCHES["scan_chunk"]
+    got = kernels.scan_chunk(packed, mask, offs, scan_tables[k], *args)
+    want = kernels.scan_chunk_plain(packed, mask, offs, scan_tables[k], *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scan_chunk"] == before + 1
+    assert got.shape == (offs.shape[0], target // 8) and got.dtype == torch.uint8
+    assert torch.equal(got, want)
+    flags = np.unpackbits(got.cpu().numpy(), axis=1, bitorder="little")
+    assert 0 < flags[:4].mean() < 1 and not flags[-2:].any()
+
+
+@pytest.mark.cuda
+def test_card_scan_chunk_raises_instead_of_falling_back(cuda, scan_tables, tmp_path):
+    target = 12288
+    idx, packed, mask, offs = _scan_world(tmp_path, 20, target)
+    table = scan_tables[20]
+    args = (idx.perm, 20, target, 500, 450, 250)
+    before = kernels.LAUNCHES["scan_chunk"]
+    past = offs.clone()
+    past[0, 0] = packed.numel() - target // 4 + 1
+    for bad in ((packed, mask, offs, table.cpu()), (packed, mask, offs.cpu(), table),
+                (packed, mask, past, table)):
+        with pytest.raises(ValueError):
+            kernels.scan_chunk(*bad, *args)
+    with pytest.raises(ValueError):  # k > 32
+        kernels.scan_chunk(packed, mask, offs, table, idx.perm, 33, target, 500, 450, 250)
+    assert kernels.LAUNCHES["scan_chunk"] == before
+
+
+@pytest.mark.cuda
+def test_card_search_references_launches_scan_chunk_once_a_chunk(cuda, tmp_path, monkeypatch):
+    """Phase B on the card: one scan_chunk a chunk, no torch hashing chain,
+    the CPU's hits."""
+    from palace_tpu_torch.config import KmerParams
+    from palace_tpu_torch.search import eref, index
+
+    db, fq1, fq2 = chip_smoke.make_small_eref_world(tmp_path)
+    idx = index.build_index(db, k=20, save=False)
+    params = KmerParams(k=20)
+    tables = {dev: eref.count_reads_into_table([fq1, fq2], idx, params, device=dev)
+              for dev in ("cpu", "cuda")}
+    want = [h.line() for h in eref.search_references(tables["cpu"], idx, params)]
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the card's Phase B ran the torch hashing chain")
+
+    monkeypatch.setattr(kernels, "kmer_hashes_masked", refuse)
+    monkeypatch.setattr(kernels, "unpack_codes_mask", refuse)
+    kernels.reset_launches()
+    got = [h.line() for h in eref.search_references(tables["cuda"], idx, params)]
+    assert kernels.LAUNCHES["scan_chunk"] == len(eref.plan_chunks(idx)) > 0
+    assert kernels.LAUNCHES["good_windows"] == 0
+    assert got == want and len(got) == 3
