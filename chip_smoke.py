@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two main paths once on one CUDA card.
+"""Drive the PyTorch/CUDA port's two main paths once on one CUDA card,
+and its host path from mapped reads to path FASTA.
 
     python3 chip_smoke.py
 
@@ -13,7 +14,10 @@ The workload is the one the scorer's users run: batches of 512 random
 
 Phases, each of which must pass:
 
-1. the card's name and power limit, the torch and CUDA versions;
+1. the card's name and power limit, the torch and CUDA versions; the
+   port's host C++ sources built with g++ (``native/_build.py``), or
+   ``native: unavailable (<compiler message>)``, in which case the host
+   phases must have taken their Python routes;
 2. the kernels, built from ``palace_tpu_torch/csrc`` with nvcc for sm_90a,
    with the registers, shared memory and spills ptxas reports, and K2's
    and K3's dynamic shared memory and blocks an SM in bf16/f16;
@@ -55,13 +59,24 @@ Phases, each of which must pass:
    counts and hashes of the same chunks, equal to its plain version;
 9. the per-reference scan, ``good_windows``' path: ``scan_reference`` over
    the planted references with the counters reset just before and read
-   just after, the same verdicts as Phase B;
+   just after, the same verdicts as Phase B; then Phase A with the native
+   loader: the eref slice read its FASTQ with it and found the 67 hits, its
+   batches equal the Python reader's, and Phase A's host seconds split into
+   the reader, ``pack_codes_mask`` and ``add_packed``;
 10. where the time goes: Phase A's host reader apart from its update on the
    card; Phase B's device time by step and by kernel over a few chunks
    (torch.profiler), and its wall time per chunk;
 11. the eref slice on a small world (k = 20) through ``run_search`` on the
    card and on the CPU: byte-identical ``ref_names.txt``;
-12. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
+12. the graph world (``make_graph_world``): a virome assembly of 5,000
+   contigs and 1,000,000 BAM records with junction evidence, written with
+   the port's ``write_bam``;
+13. the graph path through the port's CLI: depth → graph → fastg2fa →
+   matching → makefa, the native route taken, every planted junction of 5
+   good split reads in the graph and none unplanted, the Python builder's
+   graph of the same BAM equal to the native one, which solver the
+   matching ran, and the seconds of each step;
+14. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -104,6 +119,10 @@ SMALL_K = 20            # the small world run on the card and on the CPU
 #: ops.compare.TOLERANCES is stated for (ops.compare.CONV_LARGE_OUTPUTS)
 ROUNDING_SHAPE = (3, 128, 4096)
 PROFILE_CHUNKS = 4      # Phase B chunks under the profiler
+# the graph path's world (make_graph_world): a virome sample's assembly
+GRAPH_CONTIGS = 5000
+GRAPH_RECORDS = 1_000_000
+GRAPH_SEED = 11
 
 # H100 SXM, dense, at its 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -388,6 +407,182 @@ def make_eref_world(tmp: Path, n_refs: int, n_reads: int, len_range: tuple | Non
     return db, fq, len(want)
 
 
+def _flip(o: str) -> str:
+    return "-" if o == "+" else "+"
+
+
+def canonical_junction(a: str, oa: str, b: str, ob: str) -> tuple:
+    """A junction as the graph builder keys it: the smaller name first,
+    the orientations flipped and swapped with the names."""
+    return (a, oa, b, ob) if a <= b else (b, _flip(ob), a, _flip(oa))
+
+
+def make_graph_world(tmp: Path, n_contigs: int = 5000, n_records: int = 1_000_000,
+                     seed: int = SEED) -> dict:
+    """A metaSPAdes assembly of a virome sample and its reads mapped back,
+    as the graph stage takes them: ``n_contigs`` contigs of log-normal
+    lengths (median 1.5 kb, sigma 0.8, clipped to 500-60,000) and coverage,
+    chained in genomes of 1-8 contigs, half of them circular; a FASTG with
+    both strands of each contig and 70 % of the junctions as links, and its
+    ``.fai``; a coordinate-sorted BAM of ``n_records`` records written with
+    the port's ``write_bam``: per junction 1-30 split reads across it (SA
+    tags, NM 0-7) and 0-15 discordant pairs in FR layout where both ends
+    are forward, then 150 bp reads, paired or not, over the contigs by
+    length × coverage, with secondary, duplicate, unmapped, clipped and
+    low-quality ones among them.  Returns the paths, the sizes and the
+    junctions: ``strong`` (≥ 5 split reads of NM ≤ 5, which the graph must
+    hold) and ``planted`` (every junction the graph may hold)."""
+    from palace_tpu_torch.io.bam import (
+        FLAG_DUP,
+        FLAG_MREVERSE,
+        FLAG_PAIRED,
+        FLAG_REVERSE,
+        FLAG_SECONDARY,
+        FLAG_UNMAP,
+        BamFile,
+        BamRecord,
+        write_bam,
+    )
+    from palace_tpu_torch.io.fasta import build_fai, reverse_complement
+
+    rng = np.random.default_rng(seed)
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    lens = np.clip(rng.lognormal(np.log(1500), 0.8, n_contigs), 500, 60_000).astype(int)
+    covs = np.round(rng.lognormal(np.log(8), 1.0, n_contigs), 1)
+    names = [f"EDGE_{i + 1}_length_{L}_cov_{c}" for i, (L, c) in enumerate(zip(lens, covs))]
+    junctions, i = [], 0
+    while i < n_contigs:
+        members = list(range(i, min(n_contigs, i + int(rng.integers(1, 9)))))
+        orient = ["+" if o else "-" for o in rng.integers(0, 2, len(members))]
+        links = list(zip(members, orient, members[1:], orient[1:]))
+        if len(members) > 1 and rng.random() < 0.5:
+            links.append((members[-1], orient[-1], members[0], orient[0]))
+        junctions += links
+        i += len(members)
+
+    records, strong, planted = [], set(), set()
+    in_fastg = rng.random(len(junctions)) < 0.7
+
+    def end_pos(L):  # a 75 bp piece in the END region: pos1 > max(L - 300, L // 2)
+        return int(rng.integers(max(L - 300, L // 2) + 1, L - 74 + 1))
+
+    def start_pos(L):  # pos1 <= min(300, L // 2)
+        return int(rng.integers(1, min(300, L // 2) + 1))
+
+    for j, (a, oa, b, ob) in enumerate(junctions):
+        planted.add(canonical_junction(names[a], oa, names[b], ob))
+        nms = rng.choice(8, int(rng.integers(1, 31)), p=[.4, .2, .1, .1, .05, .05, .05, .05])
+        if int((nms <= 5).sum()) >= 5:
+            strong.add(canonical_junction(names[a], oa, names[b], ob))
+        for k, nm in enumerate(nms):
+            # the four layouts of tests/test_graph_golden_cpp.py, halves of 75
+            pa = end_pos(lens[a]) if oa == "+" else start_pos(lens[a])
+            pb = start_pos(lens[b]) if ob == "+" else end_pos(lens[b])
+            cig = [(75, "M"), (75, "S")] if oa == "+" else [(75, "S"), (75, "M")]
+            sa_cig = "75S75M" if ob == "+" else "75M75S"
+            records.append(BamRecord(f"j{j}s{k}", 0 if oa == "+" else FLAG_REVERSE, a, pa - 1,
+                                     60, cig, -1, -1, 0, 150,
+                                     {"NM": int(nm), "SA": f"{names[b]},{pb},{ob},{sa_cig},60,"
+                                                           f"{int(nm)};"}))
+        if oa == "+" and ob == "+":
+            for k in range(int(rng.integers(0, 16))):
+                pa, pb = int(rng.integers(lens[a] - 299, lens[a] - 149)), start_pos(lens[b])
+                records.append(BamRecord(f"j{j}p{k}", FLAG_PAIRED | FLAG_MREVERSE, a, pa - 1, 60,
+                                         [(150, "M")], b, pb - 1, 0, 150, {"NM": 0}))
+                records.append(BamRecord(f"j{j}p{k}", FLAG_PAIRED | FLAG_REVERSE, b, pb - 1, 60,
+                                         [(150, "M")], a, pa - 1, 0, 150, {"NM": 0}))
+
+    n_cov = max(0, n_records - len(records))
+    weight = lens * covs
+    tids = rng.choice(n_contigs, n_cov, p=weight / weight.sum())
+    pos0 = (rng.random(n_cov) * np.maximum(lens[tids] - 150, 1)).astype(int)
+    kind = rng.random(n_cov)
+    nms = rng.choice(8, n_cov, p=[.5, .2, .1, .1, .04, .03, .02, .01])
+    mapqs = rng.integers(0, 61, n_cov)
+    for r in range(0, n_cov - 1, 2):
+        t, p, k = int(tids[r]), int(pos0[r]), kind[r]
+        tags = {"NM": int(nms[r])}
+        if k < 0.5:  # a concordant pair on one contig
+            mp = int(min(p + 200, max(lens[t] - 150, 0)))
+            records.append(BamRecord(f"c{r}", FLAG_PAIRED | FLAG_MREVERSE, t, p, int(mapqs[r]),
+                                     [(150, "M")], t, mp, 350, 150, tags))
+            records.append(BamRecord(f"c{r}", FLAG_PAIRED | FLAG_REVERSE, t, mp, int(mapqs[r]),
+                                     [(150, "M")], t, p, -350, 150, dict(tags)))
+            continue
+        flag = (FLAG_SECONDARY if k < 0.52 else FLAG_DUP if k < 0.53 else
+                FLAG_REVERSE if k < 0.75 else 0)
+        cig = [(150, "M")] if k < 0.9 else [(20, "S"), (100, "M"), (2, "D"), (30, "M")]
+        for q in (r, r + 1):
+            records.append(BamRecord(f"u{q}", flag, int(tids[q]), int(pos0[q]), int(mapqs[q]),
+                                     cig, -1, -1, 0, 150, {"NM": int(nms[q])}))
+    records.sort(key=lambda rec: (rec.tid, rec.pos))
+    records += [BamRecord(f"x{q}", FLAG_UNMAP, -1, -1, 0, [], -1, -1, 0, 150, {})
+                for q in range(max(0, n_records - len(records)))]
+
+    fastg = tmp / "assembly_graph.fastg"
+    out_links = {i: [] for i in range(n_contigs)}
+    for (a, oa, b, ob), keep in zip(junctions, in_fastg):
+        if keep:  # a link from a's strand oa to b's strand ob (io/fastg.py parse_fastg_pairs)
+            out_links[a].append((oa, names[b] + ("" if ob == oa else "'")))
+    with open(fastg, "w") as fh:
+        for i, (name, L) in enumerate(zip(names, lens)):
+            seq = bytes(lut[rng.integers(0, 4, int(L), dtype=np.uint8)]).decode()
+            for strand, s in (("+", seq), ("-", reverse_complement(seq))):
+                links = ",".join(t for o, t in out_links[i] if o == strand)
+                head = name + ("'" if strand == "-" else "")
+                fh.write(f">{head}{':' + links if links else ''};\n{s}\n")
+    fai = tmp / "assembly_graph.fastg.fai"
+    build_fai(fastg, fai)
+    bam = tmp / "reads.sorted.bam"
+    write_bam(bam, BamFile(references=list(zip(names, map(int, lens))), records=records))
+    return dict(bam=bam, fastg=fastg, fai=fai, n_records=len(records), n_contigs=n_contigs,
+                total_bp=int(lens.sum()), n_junctions=len(junctions), strong=strong,
+                planted=planted)
+
+
+def run_graph_path(main, world: dict, out: Path, single: bool = True) -> dict:
+    """graph → depth → fastg2fa → matching → makefa through a CLI's ``main``
+    (the port's; the tests also pass the JAX package's), as the pipeline
+    runs them: the depth first, whose mean over covered positions is the
+    graph's ``--avg-depth`` (palace:541-544); matching in the global graph's
+    mode (``-s``) unless ``single`` is False; the linear and cycle paths
+    into one FASTA (mode 0).  Returns the seconds of each step and the
+    average depth."""
+    secs = {}
+
+    def step(name, argv):
+        t0 = time.perf_counter()
+        rc = main([str(a) for a in argv])
+        secs[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"{name} exited {rc}")
+
+    step("depth", ["depth", world["bam"], out / "depth.txt"])
+    t0 = time.perf_counter()
+    col = np.loadtxt(out / "depth.txt", usecols=2, dtype=np.int64, delimiter="\t", ndmin=1)
+    avg = float(col.sum()) / col.size if col.size else 0.0
+    secs["avg_depth"] = time.perf_counter() - t0
+    step("graph", ["graph", world["bam"], world["fai"], out / "graph.txt", "--avg-depth", avg])
+    step("fastg2fa", ["fastg2fa", world["fastg"], out / "nodes.fa"])
+    step("matching", ["matching", "-g", out / "graph.txt", "-r", out / "linear.txt",
+                      "-c", out / "cycle.txt", "-i", "10"] + (["-s"] if single else []))
+    (out / "paths.txt").write_text((out / "linear.txt").read_text()
+                                   + (out / "cycle.txt").read_text())
+    step("makefa", ["makefa", out / "nodes.fa", out / "paths.txt", out / "paths.fa",
+                    "--mode", "0"])
+    return dict(seconds=secs, avg_depth=avg)
+
+
+def graph_junctions(path: Path) -> set:
+    """The (left, orient, right, orient) keys of a graph file's JUNC lines."""
+    out = set()
+    for line in path.read_text().splitlines():
+        f = line.split()
+        if f and f[0] == "JUNC":
+            out.add(tuple(f[1:5]))
+    return out
+
+
 def make_small_eref_world(tmp: Path, seed: int = SEED):
     """40 random references of 3-20 kb; paired reads of 100 bp tiled three
     times (offsets 0, 3, 7, every 10 bp) from references 3, 10 and 31."""
@@ -413,6 +608,32 @@ class Smoke:
         self.dev = torch.device(device)
         self.failures: list = []
         self.records: dict = {}
+        self.native_ok: bool | None = None
+
+    def native_build(self) -> bool:
+        """Build the port's host C++ sources (the FASTQ loader and
+        ``palace_native``) with g++ and decide, from the result, whether the
+        host phases must have taken the native routes or the Python ones."""
+        from palace_tpu_torch.native import _build as native_build
+
+        t0 = time.perf_counter()
+        built = native_build.build_all()
+        failed = {n: msg for n, (path, msg) in built.items() if path is None}
+        self.native_ok = not failed
+        if failed:
+            say("native: unavailable (" + "; ".join(f"{n}: {m}" for n, m in failed.items())
+                + "); the host phases take the Python routes")
+        else:
+            say(f"native: built {', '.join(p.name for p, _ in built.values())} in "
+                f"{time.perf_counter() - t0:.1f} s (g++ {' '.join(native_build.CXX_FLAGS)} "
+                f"{' '.join(native_build.LIBS)})")
+        return self.native_ok
+
+    def host_route(self) -> str:
+        """The route the host phases must have taken: native or python."""
+        if self.native_ok is None:
+            self.native_build()
+        return "native" if self.native_ok else "python"
 
     def check(self, ok: bool, what: str) -> None:
         say(("PASS " if ok else "FAIL ") + what)
@@ -815,8 +1036,11 @@ class Smoke:
             search_references,
         )
 
+        from palace_tpu_torch.search.eref import READERS
+
         index, fq, n_planted = world
         params = KmerParams(k=EREF_K)
+        readers = dict(READERS)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
@@ -838,8 +1062,9 @@ class Smoke:
         chunks = plan_chunks(index)
         n_chunks = len(chunks)
         total = int(index.lengths.sum())
+        readers = {n: READERS[n] - readers[n] for n in READERS}
         say(f"  Phase A: {EREF_READS} reads in {a_s:.3f} s, {EREF_READS / a_s:.1f} reads/s "
-            f"(table of 2^{EREF_K} bytes)")
+            f"(table of 2^{EREF_K} bytes; FASTQ files read: {readers})")
         say(f"  Phase B: {total} positions in {n_chunks} chunks, {b_s:.3f} s, "
             f"{total / b_s / 1e6:.2f} Mpos/s; peak memory {peak / 2**30:.2f} GiB; "
             f"launches {launches}")
@@ -855,7 +1080,8 @@ class Smoke:
             f"its table reads, a 32-byte sector each: {gather_floor_ms(3 * valid):.4f} ms")
         self.records["eref"] = dict(phase_a_s=a_s, phase_b_s=b_s, peak_bytes=peak,
                                     phase_b_peak_bytes=peak_b, host_ms=parts,
-                                    n_chunks=n_chunks, launches=launches, n_hits=len(hits))
+                                    n_chunks=n_chunks, launches=launches, n_hits=len(hits),
+                                    readers=readers)
         self.check(launches["scan_chunk"] == n_chunks and n_chunks > 0,
                    f"eref main path launched scan_chunk once a chunk "
                    f"({launches['scan_chunk']} launches, {n_chunks} chunks)")
@@ -873,6 +1099,66 @@ class Smoke:
             say(f"  Phase B repeat: {secs:.3f} s, {total / secs / 1e6:.2f} Mpos/s, "
                 f"same hits: {[h.line() for h in again] == [h.line() for h in hits]}")
         return table, hits
+
+    def phase_a_native(self, world):
+        """Phase A with the native loader: the eref slice's Phase A read its
+        FASTQ with it (with the Python reader where it could not be built)
+        and found the JAX package's hits; on the same file, the loader's
+        batches equal the Python reader's, and Phase A's host seconds split
+        into the reader, ``pack_codes_mask`` and ``add_packed`` (its upload,
+        hashing and table update, on a fresh table, to a synchronize)."""
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.ops.count_table import CountTable
+        from palace_tpu_torch.ops.kmer import pack_codes_mask
+        from palace_tpu_torch.search import eref
+
+        index, fq, _ = world
+        route, rec = self.host_route(), self.records["eref"]
+        self.check(rec["readers"] == {"native": int(route == "native"),
+                                      "python": int(route == "python")},
+                   f"the eref slice's Phase A read its FASTQ with the {route} reader "
+                   f"({rec['readers']})")
+        self.check(rec["n_hits"] == EREF_JAX_HITS,
+                   f"with it, {rec['n_hits']} hits, {EREF_JAX_HITS} from the JAX package")
+        params = KmerParams(k=EREF_K)
+        maxlen = max(eref.ROW_LEN, EREF_K)
+        maxlen += (-maxlen) % 8
+        batch = eref.read_batch_size(self.dev)
+        t0 = time.perf_counter()
+        ratio = eref.compute_downsample_ratio(fq, params.down_sampling_size)
+        ratio_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batches = list(eref.read_code_batches(fq, batch, maxlen, ratio, EREF_K))
+        reader_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        python = list(eref._py_read_batches(fq, batch, maxlen, ratio, EREF_K))
+        python_s = time.perf_counter() - t0
+        self.check(len(batches) == len(python)
+                   and all(np.array_equal(a, b) for a, b in zip(batches, python)),
+                   f"the {route} reader's {len(batches)} batches equal the Python reader's")
+        del python
+        t0 = time.perf_counter()
+        packs = [pack_codes_mask(np.pad(c, ((0, batch - c.shape[0]), (0, 0)), constant_values=4))
+                 for c in batches]
+        pack_s = time.perf_counter() - t0
+        scratch = CountTable.create(EREF_K, device=self.dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for packed, mask in packs:
+            scratch.add_packed(torch.from_numpy(packed), torch.from_numpy(mask), index.perm,
+                               EREF_K)
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+        del scratch
+        reads = sum(c.shape[0] for c in batches)
+        total = ratio_s + reader_s + pack_s + add_s
+        say(f"  Phase A's parts, {reads} rows in {len(batches)} batches of {batch}: down-sampling "
+            f"ratio {ratio_s:.3f} s, {route} reader {reader_s:.3f} s (the Python reader "
+            f"{python_s:.3f} s), pack_codes_mask {pack_s:.3f} s, add_packed {add_s:.3f} s; "
+            f"{total:.3f} s in all, {reads / total:.1f} reads/s")
+        self.records["phase_a_native"] = dict(route=route, ratio_s=ratio_s, reader_s=reader_s,
+                                              python_reader_s=python_s, pack_s=pack_s,
+                                              add_packed_s=add_s, batches=len(batches))
 
     def phase_a_split(self, world):
         """Phase A's host and device parts apart: the FASTQ reader and packer
@@ -1190,6 +1476,74 @@ class Smoke:
         self.records["phase_b_profile"] = dict(spans=spans, busy_ms=busy, chunks=len(chunks),
                                                wall_ms=wall_ms)
 
+    # -- phases 12-13: the graph path (host) ---------------------------------
+    def graph_world(self, tmp: Path) -> dict:
+        t0 = time.perf_counter()
+        world = make_graph_world(tmp, GRAPH_CONTIGS, GRAPH_RECORDS, GRAPH_SEED)
+        secs = time.perf_counter() - t0
+        size = world["bam"].stat().st_size
+        say(f"  world: {world['n_records']} BAM records ({size} bytes of BAM) over "
+            f"{world['n_contigs']} contigs of {world['total_bp']} bp; {world['n_junctions']} "
+            f"junctions, {len(world['strong'])} with at least 5 split reads of NM <= 5; "
+            f"made with the port's write_bam in {secs:.1f} s")
+        self.records["graph_world"] = dict(n_records=world["n_records"], bam_bytes=size,
+                                           n_contigs=world["n_contigs"],
+                                           total_bp=world["total_bp"],
+                                           n_junctions=world["n_junctions"], seconds=secs)
+        return world
+
+    def graph_path(self, world: dict, tmp: Path):
+        """depth → graph → fastg2fa → matching → makefa through the port's
+        CLI (``run_graph_path``): the stages took the native program (or the
+        Python one where it could not be built); the graph holds every
+        junction with 5 good split reads and no junction that was not
+        planted; the Python builder writes the same graph from the same BAM;
+        and which solver the matching ran."""
+        from palace_tpu_torch import cli
+        from palace_tpu_torch.graph import native
+        from palace_tpu_torch.matching import solver
+
+        out = tmp / "graph_path"
+        out.mkdir()
+        route = self.host_route()
+        runs, solvers = dict(native.RUNS), dict(solver.SOLVERS)
+        res = run_graph_path(cli.main, world, out)
+        runs = {n: native.RUNS[n] - runs[n] for n in runs}
+        solvers = {n: solver.SOLVERS[n] - solvers[n] for n in solvers}
+        secs, n = res["seconds"], world["n_records"]
+        self.check(runs[f"graph.{route}"] == 1 and runs[f"depth.{route}"] == 1,
+                   f"graph and depth took the {route} route ({runs})")
+        say("  " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+            + f"; {route} graph {n / secs['graph']:.0f} records/s, depth "
+            f"{n / secs['depth']:.0f} records/s; average depth {res['avg_depth']:.4f}")
+        try:
+            import networkx
+            nx_version = networkx.__version__
+        except ImportError:
+            nx_version = None
+        say(f"  matching: {solvers['exact']} components by the exact blossom matcher "
+            f"(networkx {nx_version or 'absent'}), {solvers['handshake']} by the handshake")
+        junctions = graph_junctions(out / "graph.txt")
+        segs = (out / "graph.txt").read_text().count("SEG ")
+        self.check(segs == world["n_contigs"] and world["strong"] <= junctions <= world["planted"],
+                   f"graph: {segs} SEG lines, {len(junctions)} JUNC lines: all "
+                   f"{len(world['strong'])} junctions of 5 good split reads, none unplanted")
+        paths = [l for l in (out / "paths.txt").read_text().splitlines()
+                 if l.strip() and not l.startswith(("iter", "self"))]
+        fasta = (out / "paths.fa").read_text().split(">")[1:]
+        self.check(len(fasta) == len(paths) > 0 and all(r.split("\n")[1] for r in fasta),
+                   f"makefa: {len(fasta)} path sequences, one a path of the matching")
+        t0 = time.perf_counter()
+        native.build_graph(world["bam"], world["fai"], out / "graph.python.txt",
+                           res["avg_depth"], prefer_native=False)
+        py_s = time.perf_counter() - t0
+        same = (out / "graph.python.txt").read_bytes() == (out / "graph.txt").read_bytes()
+        self.check(same, f"the Python builder's graph of the same {n} records equals the "
+                         f"{route} one's: {py_s:.3f} s, {n / py_s:.0f} records/s")
+        self.records["graph_path"] = dict(route=route, seconds=secs, python_graph_s=py_s,
+                                          solvers=solvers, networkx=nx_version,
+                                          junctions=len(junctions), paths=len(fasta))
+
     def eref_against_cpu(self, tmp: Path):
         """``run_search`` on a small world (k = 20) on the card and on the
         CPU's plain path: byte-identical ``ref_names.txt``."""
@@ -1210,6 +1564,14 @@ class Smoke:
         self.check(card == cpu and n > 0,
                    f"small world (k={SMALL_K}, {index.n_refs} refs): {n} hits, ref_names.txt "
                    f"on the card byte-identical to the CPU's")
+
+
+def run_graph_phases(smoke: Smoke) -> None:
+    """The graph path on the host, in a temporary directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        world = smoke.phase("graph world", smoke.graph_world, Path(tmp))
+        if world:
+            smoke.phase("graph path", smoke.graph_path, world, Path(tmp))
 
 
 def run_phases(smoke: Smoke) -> None:
@@ -1238,6 +1600,7 @@ def run_eref_phases(smoke: Smoke) -> None:
             smoke.phase("K4 fused on real chunks", smoke.scan_chunk_on_real_chunks, world, table)
             smoke.phase("K4 at the main path's shapes", smoke.k4_at_main_shapes, world, table)
             smoke.phase("per-reference scan", smoke.per_reference_scan, world, table, hits)
+            smoke.phase("Phase A with the native loader", smoke.phase_a_native, world)
             smoke.phase("where Phase A's time goes", smoke.phase_a_split, world)
             smoke.phase("where Phase B's time goes", smoke.phase_b_profile, world, table)
         del table
@@ -1275,10 +1638,12 @@ def main() -> int:
     say(f"torch {info['torch']}, CUDA {info['cuda']}, {info['count']} device(s), "
         f"python {sys.version.split()[0]}")
 
+    smoke.native_build()
     smoke.phase("build", smoke.build)
     if not smoke.failures:
         run_phases(smoke)
         run_eref_phases(smoke)
+        run_graph_phases(smoke)
     if smoke.failures:
         say("FAILED: " + "; ".join(smoke.failures))
         return 1

@@ -4,7 +4,9 @@ The JAX package ``palace_tpu`` stays the reference; this package is a
 second implementation of its contig-scoring stage (contig FASTA →
 ``node_scores.out``) and its eref k-mer reference search (reads +
 phagedb → ``ref_names.txt``) in PyTorch, with hand-written CUDA kernels
-for ``sm_90a`` in place of the Pallas TPU kernels:
+for ``sm_90a`` in place of the Pallas TPU kernels, and of its host stages
+from mapped reads to path FASTA (BAM + FASTG → junction graph → matching
+→ path FASTA):
 
 * ``palace_tpu_torch.ops``    — host 2-bit packer, the transition-count
   encoder, k-mer hashing, the count table, the window scan, and
@@ -13,11 +15,19 @@ for ``sm_90a`` in place of the Pallas TPU kernels:
 * ``palace_tpu_torch.models`` — the GCN scorer (eval forward) and the
   scoring stage.
 * ``palace_tpu_torch.search`` — the phage index and the eref stage.
-* ``palace_tpu_torch.io``     — FASTA/FASTQ reading and writing.
+* ``palace_tpu_torch.io``     — FASTA/FASTQ (with the native FASTQ loader),
+  BAM, FASTG, graph, path and BLAST files.
+* ``palace_tpu_torch.graph``  — the junction graph and depth (the native
+  ``palace_native`` program, or Python), and the graph filter.
+* ``palace_tpu_torch.matching``, ``palace_tpu_torch.assembly`` — the
+  graph decomposition and the path FASTA.
+* ``palace_tpu_torch.native`` — the host C++ sources and their g++ build.
 
 It imports neither JAX nor ``palace_tpu``.  Entry points run on the
 CUDA device unless the caller passes ``device="cpu"``; without a card
-they raise instead of falling back.
+they raise instead of falling back.  The host stages run on the host;
+where g++ cannot build the native sources they take their Python
+versions, which write the same files.
 """
 
 __version__ = "0.1.0"

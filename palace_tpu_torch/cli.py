@@ -11,6 +11,22 @@ and a phagedb FASTA → ``ref_names.txt``, one ``ref_index`` line a hit
 (also printed); the phagedb's index is cached beside it as
 ``{phagedb}.k{K}.palace.npz``.  Both run on the CUDA device unless
 ``--device cpu``.
+
+The host stages between the mapped reads and the path FASTA take no
+``--device``:
+
+    python -m palace_tpu_torch graph <bam> <fastg.fai> <out> [--avg-depth D]
+    python -m palace_tpu_torch depth <bam> <out>
+    python -m palace_tpu_torch fastg2fa <in.fastg> <out.fasta>
+    python -m palace_tpu_torch matching -g G -r LIN -c CYC [-s] [-b] [-i N]
+        [-l contigs.paths] [--aggressive] [--exact | --no-exact]
+    python -m palace_tpu_torch makefa <fasta> <paths> <out> [--mode 0|1]
+
+``graph`` and ``depth`` are the reference's bin/generateGraph and
+``samtools depth``, run by the native ``palace_native`` program (built
+with g++ at first use) or, where it cannot be built, in Python with the
+same output; ``fastg2fa`` is split_fastg.py, ``matching`` bin/matching
+and ``makefa`` make_fa_from_path.py.
 """
 from __future__ import annotations
 
@@ -57,7 +73,41 @@ def _cmd_eref(args) -> int:
     return 0
 
 
+def _cmd_graph(args) -> int:
+    from palace_tpu_torch.graph.native import build_graph
+
+    build_graph(args.bam, args.fastg_fai, args.out, args.avg_depth)
+    return 0
+
+
+def _cmd_depth(args) -> int:
+    from palace_tpu_torch.graph.native import compute_depth_file
+
+    compute_depth_file(args.bam, args.out)
+    return 0
+
+
+def _cmd_fastg2fa(args) -> int:
+    from palace_tpu_torch.io.fastg import fastg_to_node_fasta
+
+    n = fastg_to_node_fasta(args.fastg, args.out)
+    print(f"{n} nodes", file=sys.stderr)
+    return 0
+
+
+def _cmd_makefa(args) -> int:
+    from palace_tpu_torch.assembly.path_fa import make_fa_from_path
+
+    make_fa_from_path(args.fasta, args.paths, args.out, args.mode)
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "matching":
+        from palace_tpu_torch.matching.solver import main as matching_main
+
+        return matching_main(argv[1:])
     ap = argparse.ArgumentParser(prog="palace_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -86,6 +136,30 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) or cpu; there is no fallback between them")
     p.set_defaults(fn=_cmd_eref)
+
+    p = sub.add_parser("graph", help="junction graph from BAM (bin/generateGraph)")
+    p.add_argument("bam")
+    p.add_argument("fastg_fai")
+    p.add_argument("out")
+    p.add_argument("--avg-depth", type=float, default=0.0)
+    p.set_defaults(fn=_cmd_graph)
+
+    p = sub.add_parser("depth", help="per-base depth (samtools depth equivalent)")
+    p.add_argument("bam")
+    p.add_argument("out")
+    p.set_defaults(fn=_cmd_depth)
+
+    p = sub.add_parser("fastg2fa", help="FASTG → node FASTA (split_fastg.py)")
+    p.add_argument("fastg")
+    p.add_argument("out")
+    p.set_defaults(fn=_cmd_fastg2fa)
+
+    p = sub.add_parser("makefa", help="path file → FASTA (make_fa_from_path.py)")
+    p.add_argument("fasta")
+    p.add_argument("paths")
+    p.add_argument("out")
+    p.add_argument("--mode", type=int, default=0, choices=(0, 1))
+    p.set_defaults(fn=_cmd_makefa)
     args = ap.parse_args(argv)
     return args.fn(args)
 

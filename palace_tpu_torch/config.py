@@ -1,5 +1,6 @@
-"""Parameters of the k-mer reference search (the port's own copy of
-``KmerParams``; the pipeline's other settings are not ported yet)."""
+"""Parameters of the k-mer reference search (``KmerParams``) and of the
+junction-graph builder (``GraphParams``): the port's own copies; the
+pipeline's other settings are not ported yet."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -24,3 +25,18 @@ class KmerParams:
     min_cover_ratio: float = 0.75  # emit refs covered >75% (:617)
     down_sampling_size: int = 2_000_000_000  # 2 Gbp (:1230)
     coder_seed: int = 1           # seed of the coder permutation (index build and search agree)
+
+
+@dataclass
+class GraphParams:
+    """Fixed constants of the junction-graph builder (generate_graph.cpp:20-41)."""
+
+    max_end: int = 300
+    min_mapq: int = 0
+    max_nm: int = 5
+    max_span_frac: float = 0.80
+    min_count: int = 5
+    enable_paired: bool = True
+    lib_type: str = "FR"
+    max_gap: int = 150      # split-read stitch gap (generate_graph.cpp:755)
+    max_overlap: int = 150  # split-read stitch overlap (:756)

@@ -1,1 +1,2 @@
-"""File formats the scoring stage reads and writes."""
+"""File formats of the port: FASTA/FASTQ (and the native FASTQ loader),
+BAM, FASTG, the SEG/JUNC graph file, path files and BLAST tables."""

@@ -109,6 +109,9 @@ class FastaIndex:
             for e in self.entries:
                 fh.write(f"{e.name}\t{e.length}\t{e.offset}\t{e.linebases}\t{e.linewidth}\n")
 
+    def lengths(self) -> Dict[str, int]:
+        return {e.name: e.length for e in self.entries}
+
     def name_by_row(self, row_1based: int) -> str:
         """1-based fai row → sequence name (get_ref_by_index.py:40-49)."""
         return self.entries[row_1based - 1].name
@@ -162,6 +165,12 @@ class FastaStore:
     def __contains__(self, name: str) -> bool:
         return name in self.index.by_name
 
+    def names(self) -> List[str]:
+        return [e.name for e in self.index.entries]
+
+    def length(self, name: str) -> int:
+        return self.index.by_name[name].length
+
     def fetch(self, name: str) -> str:
         e = self.index.by_name[name]
         self._fh.seek(e.offset)
@@ -172,3 +181,26 @@ class FastaStore:
         rem = e.length - full_lines * e.linebases
         raw = self._fh.read(full_lines * e.linewidth + rem)
         return raw.replace(b"\r", b"").replace(b"\n", b"").decode()
+
+    def fetch_oriented(self, token: str) -> str:
+        """Fetch by oriented token ``NAME+``/``NAME-`` (or bare name).
+
+        Falls back to dropping the last ``_`` part like
+        make_fa_from_path.py:36-39 when the name is missing.
+        """
+        token = token.replace(" ", "").strip()
+        orient = "+"
+        name = token
+        if token and token[-1] in "+-":
+            orient = token[-1]
+            name = token[:-1]
+        if not name:
+            return ""
+        if name not in self.index.by_name:
+            fallback = "_".join(name.split("_")[:-1])
+            if fallback in self.index.by_name:
+                name = fallback
+            else:
+                raise KeyError(name)
+        seq = self.fetch(name)
+        return reverse_complement(seq) if orient == "-" else seq

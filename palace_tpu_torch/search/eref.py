@@ -5,8 +5,9 @@ genomes are present in the read set.
 
 Phase A (extract_ref.cpp read_fastq :905-1008): reads, down-sampled to
 ~2 Gbp, fill a saturating count table over the canonical 3-coder k-mer
-hashes.  Reads are packed on the host in fixed-shape batches and hashed
-and counted on the device (``ops.count_table``).
+hashes.  The native loader (``io/fastq_native.py``) parses the FASTQ
+into fixed-shape code batches on the host, which are packed there and
+hashed and counted on the device (``ops.count_table``).
 
 Phase B (read_index :813-903 + slide_window :504-624): every reference
 position's 3 hashes are looked up; a 500 bp sliding window marks good
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ from torch.profiler import record_function
 
 from palace_tpu_torch.config import KmerParams
 from palace_tpu_torch.device import resolve_device
+from palace_tpu_torch.io import fastq_native
 from palace_tpu_torch.io.fasta import iter_fastq
 from palace_tpu_torch.ops import kernels
 from palace_tpu_torch.ops.count_table import CountTable
@@ -58,6 +60,8 @@ ROW_LEN = 160             # row width: ≥150 bp short reads
 #: stack into ``CHUNK_POS // bucket`` rows
 CHUNK_POS = 1 << 22
 _MIX = np.uint64(2654435761)
+#: FASTQ files read by each of Phase A's readers (``read_code_batches``)
+READERS: Dict[str, int] = {"native": 0, "python": 0}
 
 
 def read_batch_size(device: torch.device) -> int:
@@ -66,8 +70,12 @@ def read_batch_size(device: torch.device) -> int:
 
 def compute_downsample_ratio(fastq_path: str | Path, target_bases: int) -> int:
     """Reference cal_sam_ratio (extract_ref.cpp:1124-1148): percentage
-    = 100·target / (2 × total bases of fq1)."""
-    total = 2 * sum(len(seq) for _, seq, _ in iter_fastq(fastq_path))  # paired
+    = 100·target / (2 × total bases of fq1).  The bases are counted by the
+    native loader, or in Python where it is unavailable."""
+    total = fastq_native.count_bases(fastq_path)
+    if total is None:
+        total = sum(len(seq) for _, seq, _ in iter_fastq(fastq_path))
+    total *= 2  # paired
     if total == 0:
         return 100
     return int(100 * target_bases // total)
@@ -81,7 +89,8 @@ def _keep_read(read_idx: int, ratio: int) -> bool:
 
 def _split_rows(codes: np.ndarray, maxlen: int, k: int) -> List[np.ndarray]:
     """Rows of ≤maxlen codes with k-1 overlap between consecutive rows of
-    the same read, so the read's k-mer multiset is kept exactly."""
+    the same read, so the read's k-mer multiset is kept exactly (the
+    native loader's ``emit_read``)."""
     n = codes.shape[0]
     if n <= maxlen:
         return [codes]
@@ -104,15 +113,10 @@ def _pack(reads: List[np.ndarray], maxlen: int) -> np.ndarray:
     return out
 
 
-def read_code_batches(
-    fastq_path: str | Path,
-    batch: int = READ_BATCH,
-    maxlen: int = ROW_LEN,
-    ratio: int = 100,
-    k: int = 32,
-) -> Iterator[np.ndarray]:
-    """(rows ≤ batch, maxlen) uint8 base-code matrices of the kept reads,
-    pad code 4."""
+def _py_read_batches(fastq_path: str | Path, batch: int, maxlen: int, ratio: int,
+                     k: int) -> Iterator[np.ndarray]:
+    """The Python reader: (rows ≤ batch, maxlen) uint8 base-code matrices
+    of the kept reads, pad code 4, as the native loader gives them."""
     buf: List[np.ndarray] = []
     idx = 0
     for _, seq, _ in iter_fastq(fastq_path):
@@ -125,6 +129,25 @@ def read_code_batches(
             buf = buf[batch:]
     if buf:
         yield _pack(buf, maxlen)
+
+
+def read_code_batches(
+    fastq_path: str | Path,
+    batch: int = READ_BATCH,
+    maxlen: int = ROW_LEN,
+    ratio: int = 100,
+    k: int = 32,
+) -> Iterator[np.ndarray]:
+    """(rows ≤ batch, maxlen) uint8 base-code matrices of the kept reads,
+    pad code 4: from the native loader where it is built, else from the
+    Python reader (the same batches).  ``READERS`` counts the files each
+    read."""
+    if fastq_native.available():
+        READERS["native"] += 1
+        yield from fastq_native.native_batches(fastq_path, batch, maxlen, ratio, k)
+    else:
+        READERS["python"] += 1
+        yield from _py_read_batches(fastq_path, batch, maxlen, ratio, k)
 
 
 def count_reads_into_table(

@@ -205,3 +205,33 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
     assert smoke.records["scan_chunk"]["all_chunks"] >= smoke.records["scan_chunk"]["chunks"] >= 2
     assert set(chip_smoke.KERNELS) == set(chip_smoke.SCORING_KERNELS) | {"good_windows",
                                                                           "scan_chunk"}
+
+
+def test_graph_phases_run_on_the_cpu_at_a_small_size(monkeypatch):
+    """The graph world and path at 60 contigs and 6,000 records: every
+    check passes, with the native routes where g++ builds them."""
+    monkeypatch.setattr(chip_smoke, "GRAPH_CONTIGS", 60)
+    monkeypatch.setattr(chip_smoke, "GRAPH_RECORDS", 6000)
+    smoke = chip_smoke.Smoke("cpu")
+    assert smoke.native_build() == (shutil.which("g++") is not None)
+    chip_smoke.run_graph_phases(smoke)
+    assert smoke.failures == []
+    rec = smoke.records["graph_path"]
+    assert rec["route"] == "native" and rec["junctions"] > 10 and rec["paths"] > 10
+    assert rec["solvers"]["exact"] > 0 and rec["solvers"]["handshake"] == 0
+    assert smoke.records["graph_world"]["n_records"] == 6000
+
+
+def test_make_graph_world_plants_what_the_graph_finds(tmp_path):
+    world = chip_smoke.make_graph_world(tmp_path, n_contigs=40, n_records=3000, seed=2)
+    assert world["n_records"] == 3000 and world["strong"] <= world["planted"]
+    assert len(world["planted"]) == world["n_junctions"] > 20
+    from palace_tpu_torch.io.bam import read_bam
+
+    recs = read_bam(world["bam"]).records
+    keys = [(r.tid if r.tid >= 0 else 1 << 30, r.pos) for r in recs]
+    assert keys == sorted(keys) and sum("SA" in r.tags for r in recs) > 100
+    heads = [l for l in world["fastg"].read_text().splitlines() if l.startswith(">")]
+    assert len(heads) == 80
+    assert sum(h[1:].split(":")[0].rstrip(";").endswith("'") for h in heads) == 40
+    assert chip_smoke.canonical_junction("b", "+", "a", "-") == ("a", "+", "b", "-")

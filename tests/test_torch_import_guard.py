@@ -53,7 +53,9 @@ def test_every_module_imports_without_jax():
         palace_tpu_torch.__path__, "palace_tpu_torch.") if not m.name.endswith("__main__"))
     assert {"palace_tpu_torch.ops.kernels", "palace_tpu_torch.cli", "palace_tpu_torch.config",
             "palace_tpu_torch.ops.count_table", "palace_tpu_torch.search.eref",
-            "palace_tpu_torch.search.refs"} <= set(modules)
+            "palace_tpu_torch.search.refs", "palace_tpu_torch.io.fastq_native",
+            "palace_tpu_torch.native._build", "palace_tpu_torch.graph.native",
+            "palace_tpu_torch.matching.solver", "palace_tpu_torch.assembly.path_fa"} <= set(modules)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
