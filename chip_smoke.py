@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's two main paths once on one CUDA card,
-and its host path from mapped reads to path FASTA.
+its host path from mapped reads to path FASTA, and the whole pipeline
+that composes them, from one config file to the final phage FASTA.
 
     python3 chip_smoke.py
 
@@ -76,7 +77,19 @@ Phases, each of which must pass:
    good split reads in the graph and none unplanted, the Python builder's
    graph of the same BAM equal to the native one, which solver the
    matching ran, and the seconds of each step;
-14. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
+14. the pipeline world (``make_pipeline_world``): a virome sample after
+   SPAdes, 12 planted phages among 3,000 other contigs, its BAM, reads,
+   gene hits, a 1,000-reference phagedb and a seeded checkpoint at
+   ``GCNConfig()``'s width, made with the port's writers;
+15. the pipeline: ``run_pipeline(cfg, device="cuda")`` with every launch
+   counter reset just before and read just after: K1 and K2 launched once
+   and K3 three times a scoring batch, ``scan_chunk`` once a chunk,
+   ``good_windows`` never; ``node_scores.out`` in the assembly's order,
+   64 contigs rescored on the CPU through the plain path in float32;
+   exactly the planted references; every planted genome in the final
+   FASTA; the seconds of each step and stage, the scorer's contigs/s,
+   Phase A and B, and the peak device memory;
+16. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -601,6 +614,220 @@ def make_small_eref_world(tmp: Path, seed: int = SEED):
             for i, r in enumerate(rs):
                 fh.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
     return tmp / "small_db.fasta", tmp / "small_1.fastq", tmp / "small_2.fastq"
+
+
+PIPELINE_SEED = 13
+PIPELINE_PHAGES = 12
+PIPELINE_OTHERS = 3000
+PIPELINE_DECOYS = 988
+PIPELINE_PREFIX = "virome"
+PIPELINE_KEYS: dict = {}  # config keys beside the demo's; none: every default
+PIPELINE_RESCORED = 64   # contigs rescored on the CPU through the plain path
+PHAGE_DEPTH, OTHER_DEPTH, BAM_DEPTH = 30, 5, 5
+READ_LEN, FRAGMENT = 150, 350
+SPLIT_READS = 6          # split reads a planted junction (MIN_COUNT is 5)
+
+
+def reference_state_dict(params: dict, cfg) -> dict:
+    """The port's parameters under the reference checkpoint's key names and
+    layouts (``GCN_model_retrained.pt``): the inverse of
+    ``models.gcn.params_from_numpy_state``."""
+    t = {name: params[name].detach().cpu() for name in params}
+    state = {}
+    for name in ("pnode_d", "fnode_d", "d1", "d2"):
+        state[f"{name}.weight"] = t[f"{name}.w"].T.contiguous()
+        state[f"{name}.bias"] = t[f"{name}.b"]
+    for i in range(cfg.num_layers):
+        for tag in ("convs_1", "convs_2"):
+            state[f"{tag}.{i}.lin_l.weight"] = t[f"{tag}.{i}.lin_l.w"].T.contiguous()
+            state[f"{tag}.{i}.lin_l.bias"] = t[f"{tag}.{i}.lin_l.b"]
+            state[f"{tag}.{i}.lin_r.weight"] = t[f"{tag}.{i}.lin_r.w"].T.contiguous()
+    state["lns.0.weight"], state["lns.0.bias"] = t["ln.scale"], t["ln.bias"]
+    for i in (1, 2, 3):
+        state[f"conv{i}.weight"], state[f"conv{i}.bias"] = t[f"conv{i}.w"], t[f"conv{i}.b"]
+    return state
+
+
+def make_pipeline_world(tmp: Path, seed: int = PIPELINE_SEED, n_phages: int = PIPELINE_PHAGES,
+                        n_others: int = PIPELINE_OTHERS, n_decoys: int = PIPELINE_DECOYS,
+                        config_keys: dict | None = None) -> dict:
+    """A virome sample after SPAdes, staged as the pipeline takes it
+    (``scripts/make_demo.py``'s layout, made with the port's writers):
+
+    * ``n_phages`` planted genomes, log-uniform 20-80 kb, every other one
+      circular, each cut into 2-5 contigs; ``n_others`` non-phage contigs,
+      log-normal lengths of median 2 kb (sigma 0.8, 500-60,000 bp), GC
+      0.35-0.65 for a phage and 0.3-0.7 for another contig, in a shuffled
+      assembly named ``EDGE_{i}_length_{L}_cov_{c}``;
+    * ``02-assembly/``: ``contigs.fasta``, ``assembly_graph.fasta``, a FASTG
+      whose links are the planted adjacencies, ``contigs.paths`` with a
+      path a phage, and a sorted BAM: 150 bp reads at a uniform depth of
+      ``BAM_DEPTH`` over every contig and ``SPLIT_READS`` split reads at
+      each planted junction, circular closures included;
+    * ``01-qc/``: paired reads of 150 bp from 350 bp fragments, the planted
+      genomes at ``PHAGE_DEPTH``× and the other contigs at ``OTHER_DEPTH``×;
+    * ``03-search/hit_seqs.out``: 8 gene hits a planted contig (the protein
+      search is an external tool); no ``node_scores.out`` and no reference
+      files: the scorer and eref make them;
+    * a phagedb of the planted genomes and ``n_decoys`` decoys, log-uniform
+      5-100 kb, shuffled; a protein database; a ``gcn_model`` checkpoint at
+      ``models.gcn.DEFAULT_CONFIG``'s width with seeded weights (d1 and d2
+      scaled ×3 and ×30, as the slice's check scales them), under the
+      reference's key names;
+    * ``config.txt`` with the demo's keys (``MIN_LEN=10000``, ``threads=8``,
+      ``dev_fabricate_blast=1``) and ``config_keys``; every ``kmer_*`` and
+      ``score_*`` key is left at its default unless ``config_keys`` sets it.
+
+    Returns the paths, the sizes and the planted genomes."""
+    from palace_tpu_torch.io.bam import FLAG_REVERSE, BamFile, BamRecord, write_bam
+    from palace_tpu_torch.io.fasta import reverse_complement, write_fasta
+    from palace_tpu_torch.models import gcn
+
+    rng = np.random.default_rng(seed)
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+    def seq(n, gc: float = 0.5) -> str:
+        at = (1 - gc) / 2
+        return bytes(lut[rng.choice(4, int(n), p=[at, gc / 2, gc / 2, at])]).decode()
+
+    pieces, genomes = [], []  # pieces: (sequence, phage index or -1, cov)
+    for i, g_len in enumerate(np.exp(rng.uniform(np.log(20_000), np.log(80_000), n_phages))):
+        genome = seq(g_len, rng.uniform(0.35, 0.65))
+        weights = rng.uniform(0.5, 1.5, int(rng.integers(2, 6)))
+        bounds = np.round(np.concatenate([[0], np.cumsum(weights)]) / weights.sum()
+                          * len(genome)).astype(int)
+        genomes.append(dict(name=f"phage{i + 1}", genome=genome, circular=i % 2 == 0,
+                            members=[]))
+        pieces += [(genome[a:b], i, float(PHAGE_DEPTH)) for a, b in zip(bounds, bounds[1:])]
+    lens = np.clip(rng.lognormal(np.log(2000), 0.8, n_others), 500, 60_000).astype(int)
+    covs = np.round(rng.lognormal(np.log(OTHER_DEPTH), 0.5, n_others), 1)
+    pieces += [(seq(L, gc), -1, float(c))
+               for L, c, gc in zip(lens, covs, rng.uniform(0.3, 0.7, n_others))]
+    contigs = {}
+    for e, j in enumerate(rng.permutation(len(pieces))):
+        s, owner, cov = pieces[j]
+        name = f"EDGE_{e + 1}_length_{len(s)}_cov_{cov}"
+        contigs[name] = s
+        if owner >= 0:
+            genomes[owner]["members"].append((j, name))
+    junctions = []
+    for g in genomes:  # members in genome order
+        g["members"] = [name for _, name in sorted(g["members"])]
+        m = g["members"]
+        junctions += list(zip(m, m[1:])) + ([(m[-1], m[0])] if g["circular"] else [])
+
+    out = tmp / "output"
+    qc, asm, search = out / "01-qc", out / "02-assembly", out / "03-search"
+    for d in (qc, asm, search):
+        d.mkdir(parents=True, exist_ok=True)
+    prefix = PIPELINE_PREFIX
+    write_fasta(asm / "contigs.fasta", contigs.items())
+    write_fasta(asm / "assembly_graph.fasta", contigs.items())
+    links = {}
+    for a, b in junctions:
+        links.setdefault(a, []).append(b)
+    with open(asm / "assembly_graph.fastg", "w") as fh:
+        for name, s in contigs.items():
+            head = f">{name}:{','.join(links[name])};" if name in links else f">{name};"
+            fh.write(f"{head}\n{s}\n")
+    with open(asm / "contigs.paths", "w") as fh:
+        for n, g in enumerate(genomes, 1):
+            fh.write(f"NODE_{n}_length_{len(g['genome'])}_cov_{PHAGE_DEPTH}\n"
+                     + ",".join(f"{m.split('_')[1]}+" for m in g["members"]) + ";\n")
+
+    tid = {name: i for i, name in enumerate(contigs)}
+    records = []
+    half = READ_LEN // 2
+    for a, b in junctions:
+        for k in range(SPLIT_READS):
+            records.append(BamRecord(f"sr_{tid[a]}_{tid[b]}_{k}", 0, tid[a],
+                                     len(contigs[a]) - half, 60, [(half, "M"), (half, "S")],
+                                     -1, -1, 0, READ_LEN,
+                                     {"NM": 0, "SA": f"{b},1,+,{half}S{half}M,60,0;"}))
+    for name, s in contigs.items():
+        n = len(s) * BAM_DEPTH // READ_LEN
+        for k, (pos, rev) in enumerate(zip(rng.integers(0, len(s) - READ_LEN + 1, n),
+                                           rng.random(n) < 0.5)):
+            records.append(BamRecord(f"cov_{tid[name]}_{k}", FLAG_REVERSE if rev else 0,
+                                     tid[name], int(pos), 60, [(READ_LEN, "M")], -1, -1, 0,
+                                     READ_LEN, {"NM": 0}))
+    records.sort(key=lambda r: (r.tid, r.pos))
+    bam = asm / f"{prefix}_reads_pe_primary.sort.bam"
+    write_bam(bam, BamFile(references=[(n, len(s)) for n, s in contigs.items()],
+                           records=records))
+    with open(search / "hit_seqs.out", "w") as fh:
+        for g in genomes:
+            fh.writelines(f"{m}\t8\n" for m in g["members"])
+
+    fq = [[], []]
+    sources = [(g["genome"] + (g["genome"][:FRAGMENT] if g["circular"] else ""), PHAGE_DEPTH)
+               for g in genomes]
+    planted = {m for g in genomes for m in g["members"]}
+    sources += [(s, OTHER_DEPTH) for name, s in contigs.items() if name not in planted]
+    qual = "I" * READ_LEN
+    for src, depth in sources:
+        n_pairs = len(src) * depth // (2 * READ_LEN)
+        for start in rng.integers(0, len(src) - FRAGMENT + 1, n_pairs):
+            frag = src[start:start + FRAGMENT]
+            i = len(fq[0])
+            fq[0].append(f"@p{i}/1\n{frag[:READ_LEN]}\n+\n{qual}\n")
+            fq[1].append(f"@p{i}/2\n{reverse_complement(frag[-READ_LEN:])}\n+\n{qual}\n")
+    fastqs = [qc / f"{prefix}_{m}_filter.fastq" for m in (1, 2)]
+    for path, lines in zip(fastqs, fq):
+        path.write_text("".join(lines))
+
+    refs = [(g["name"], g["genome"]) for g in genomes]
+    refs += [(f"decoy{j + 1}", seq(L)) for j, L in
+             enumerate(np.exp(rng.uniform(np.log(5_000), np.log(100_000), n_decoys)))]
+    refs = [refs[j] for j in rng.permutation(len(refs))]
+    phagedb = tmp / "phagedb.fasta"
+    write_fasta(phagedb, refs)
+    protein_db = tmp / "protein_db"
+    protein_db.mkdir(exist_ok=True)
+    (protein_db / "proteins.fasta").write_text(">prot1\nMAAAKKK\n")
+    model = tmp / "gcn_model.pt"
+    cfg = gcn.DEFAULT_CONFIG
+    params = gcn.init_params(torch.Generator().manual_seed(seed), cfg)
+    # fan-in weights put every probability at about 0.507; scaled as in the
+    # slice's check, they spread with the contigs' composition
+    params["d1.w"], params["d2.w"] = params["d1.w"] * 3.0, params["d2.w"] * 30.0
+    torch.save(reference_state_dict(params, cfg), model)
+
+    keys = {"fastq1": fastqs[0], "fastq2": fastqs[1], "phagedb": phagedb,
+            "protein_db": protein_db, "gcn_model": model, "out_dir": out, "prefix": prefix,
+            "threads": 8, "MIN_LEN": 10000, "dev_fabricate_blast": 1, **(config_keys or {})}
+    config = tmp / "config.txt"
+    config.write_text("".join(f"{k}={v}\n" for k, v in keys.items()))
+    return dict(config=config, out=out, fasta=asm / "assembly_graph.fasta", bam=bam,
+                fastqs=fastqs, phagedb=phagedb, model=model, genomes=genomes,
+                ref_names=[name for name, _ in refs], n_contigs=len(contigs),
+                assembly_bp=sum(map(len, contigs.values())), n_records=len(records),
+                n_pairs=len(fq[0]), n_junctions=len(junctions),
+                phagedb_bp=sum(len(s) for _, s in refs))
+
+
+def _rc(s: str) -> str:
+    return s[::-1].translate(str.maketrans("ACGTacgt", "TGCAtgca"))
+
+
+def reconstructed(final_fasta: Path, genomes: list) -> tuple:
+    """Which planted genomes ``final_fasta`` holds, modulo its 50-N joints
+    (tests/test_demo_reconstruction.py): a circular one up to rotation and
+    reverse complement, a linear one equal or reverse-complemented; and how
+    many records match no planted genome."""
+    from palace_tpu_torch.io.fasta import iter_fasta
+
+    bodies = [re.sub("N+", "", s) for _, s in iter_fasta(final_fasta)]
+
+    def holds(body: str, g: dict) -> bool:
+        want = g["genome"]
+        if g["circular"]:
+            return len(body) == len(want) and (body in want + want or _rc(body) in want + want)
+        return body == want or _rc(body) == want
+
+    found = [g["name"] for g in genomes if any(holds(b, g) for b in bodies)]
+    others = sum(not any(holds(b, g) for g in genomes) for b in bodies)
+    return found, others
 
 
 class Smoke:
@@ -1544,6 +1771,129 @@ class Smoke:
                                           solvers=solvers, networkx=nx_version,
                                           junctions=len(junctions), paths=len(fasta))
 
+    # -- phases 14-15: the pipeline -----------------------------------------
+    def pipeline_world(self, tmp: Path) -> dict:
+        t0 = time.perf_counter()
+        world = make_pipeline_world(tmp, PIPELINE_SEED, PIPELINE_PHAGES, PIPELINE_OTHERS,
+                                    PIPELINE_DECOYS, PIPELINE_KEYS)
+        secs = time.perf_counter() - t0
+        genomes = world["genomes"]
+        files = (world["fasta"], world["bam"], *world["fastqs"], world["phagedb"], world["model"])
+        sizes = {f.name: f.stat().st_size for f in files}
+        say(f"  world: {len(genomes)} planted phages ({sum(g['circular'] for g in genomes)} "
+            f"circular, {sum(len(g['genome']) for g in genomes)} bp) in an assembly of "
+            f"{world['n_contigs']} contigs, {world['assembly_bp']} bp, "
+            f"{world['n_junctions']} planted junctions; {world['n_records']} BAM records; "
+            f"{world['n_pairs']} read pairs of {READ_LEN} bp; a phagedb of "
+            f"{len(world['ref_names'])} references, {world['phagedb_bp']} bp; "
+            f"made in {secs:.1f} s")
+        say("  bytes: " + ", ".join(f"{name} {n}" for name, n in sizes.items()))
+        self.records["pipeline_world"] = dict(
+            seconds=secs, bytes=sizes, **{k: world[k] for k in (
+                "n_contigs", "assembly_bp", "n_records", "n_pairs", "n_junctions", "phagedb_bp")})
+        return world
+
+    def pipeline(self, world: dict):
+        """``run_pipeline(cfg, device=...)`` on the pipeline world, every
+        launch counter reset just before and read just after: the scorer
+        launched K1 and K2 once and K3 three times a batch and eref
+        ``scan_chunk`` once a chunk of ``plan_chunks``, ``good_windows``
+        never; ``node_scores.out`` names every contig in order, and
+        ``PIPELINE_RESCORED`` of them drawn with the seed agree with the
+        plain path on the CPU in float32; the references are exactly the
+        planted ones; the final FASTA holds every planted genome."""
+        import gc
+
+        from palace_tpu_torch.config import PalaceConfig
+        from palace_tpu_torch.io.fasta import iter_fasta
+        from palace_tpu_torch.models import gcn
+        from palace_tpu_torch.models.scoring import score_sequences
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.pipeline.driver import run_pipeline
+        from palace_tpu_torch.search.eref import plan_chunks
+        from palace_tpu_torch.search.index import load_index
+        from palace_tpu_torch.utils.timers import GLOBAL_METRICS
+
+        cfg = PalaceConfig.from_file(world["config"])
+        cuda = self.dev.type == "cuda"
+        gc.collect()  # the earlier phases' tables and models
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        GLOBAL_METRICS.stages.clear()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        final = run_pipeline(cfg, device=self.dev)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        out = cfg.output_files()
+        metrics = json.loads((Path(cfg.out_dir) / f"{cfg.prefix}_metrics.json").read_text())
+        steps = {k: v["seconds"] for k, v in metrics.items() if k.startswith("step")}
+        stages = {k[len("stage:"):]: v["seconds"] for k, v in metrics.items()
+                  if k.startswith("stage:")}
+        score, count = metrics["gcn.score"], metrics["eref.count_reads"]
+        scan = metrics["eref.scan_refs"]
+        say(f"  run_pipeline on {self.dev.type}: {wall:.3f} s; "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(steps.items())))
+        say("  its stages (StageRunner): "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
+        say(f"  scorer {score['items']:.0f} contigs in {score['seconds']:.3f} s, "
+            f"{score['throughput']:.1f} contigs/s ({cfg.score.dtype}, batch {cfg.score.batch_size}); "
+            f"eref index build {metrics.get('eref.index_build', {}).get('seconds', 0.0):.3f} s, "
+            f"Phase A {count['seconds']:.3f} s ({count['items']:.0f} reads), Phase B "
+            f"{scan['seconds']:.3f} s; peak device memory {peak / 2**30:.2f} GiB; "
+            f"launches {launches}")
+
+        names = [n for n, _ in iter_fasta(world["fasta"])]
+        n_batches = -(-len(names) // cfg.score.batch_size)
+        n_chunks = len(plan_chunks(load_index(cfg.phagedb, cfg.kmer.k)))
+        for name, n in (("transition_counts", n_batches), ("sage_rounds", n_batches),
+                        ("conv_head", 3 * n_batches), ("scan_chunk", n_chunks),
+                        ("good_windows", 0)):
+            self.check(launches[name] == n, f"pipeline launched {name} {n} times "
+                                            f"(got {launches[name]})")
+
+        rows = [line.split("\t") for line in out["node_score"].read_text().splitlines()]
+        probs = np.array([float(p) for _, p in rows])
+        self.check([n for n, _ in rows] == names and bool(np.isfinite(probs).all())
+                   and bool(((probs >= 0) & (probs <= 1)).all()),
+                   f"node_scores.out names the {len(names)} records of assembly_graph.fasta in "
+                   f"order; probabilities finite, in [0, 1], spread {np.ptp(probs):.3f}")
+        pick = np.sort(np.random.default_rng(PIPELINE_SEED).choice(
+            len(names), min(PIPELINE_RESCORED, len(names)), replace=False))
+        seqs = dict(iter_fasta(world["fasta"]))
+        params = gcn.load_torch_state_dict(cfg.gcn_model, gcn.DEFAULT_CONFIG)
+        want = np.array([p for _, p in score_sequences(
+            params, [(names[i], seqs[names[i]]) for i in pick], gcn.DEFAULT_CONFIG,
+            batch_size=len(pick), device="cpu")])
+        err = float(np.abs(probs[pick] - want).max())
+        self.check(err <= PROB_ATOL, f"{len(pick)} contigs drawn with the seed, rescored on the "
+                                     f"CPU through the plain path in float32: max |dp| "
+                                     f"{err:.3g} <= {PROB_ATOL}")
+
+        hits = [int(line.split("\t")[1]) for line in out["ref_names"].read_text().splitlines()]
+        reported = sorted(world["ref_names"][i - 1] for i in hits)
+        planted = sorted(g["name"] for g in world["genomes"])
+        self.check(reported == planted, f"{out['ref_names'].name} names exactly the "
+                                        f"{len(planted)} planted references ({reported})")
+        found, others = reconstructed(final, world["genomes"])
+        n_circ = sum(g["circular"] for g in world["genomes"])
+        self.check(len(found) == len(planted),
+                   f"{final.name} holds {len(found)} of the {len(planted)} planted genomes "
+                   f"({n_circ} circular up to rotation and reverse complement, "
+                   f"{len(planted) - n_circ} linear), modulo the 50-N joints")
+        say(f"  {others} other record(s) in {final.name}: non-phage contigs the "
+            f"random-weight scores let through")
+        self.records["pipeline"] = dict(
+            wall_s=wall, steps=steps, stages=stages, launches=launches, peak_bytes=peak,
+            n_batches=n_batches, n_chunks=n_chunks, contigs_per_s=score["throughput"],
+            score_s=score["seconds"],
+            phase_a_s=count["seconds"], phase_b_s=scan["seconds"], rescore_err=err,
+            found=found, others=others)
+
     def eref_against_cpu(self, tmp: Path):
         """``run_search`` on a small world (k = 20) on the card and on the
         CPU's plain path: byte-identical ``ref_names.txt``."""
@@ -1572,6 +1922,14 @@ def run_graph_phases(smoke: Smoke) -> None:
         world = smoke.phase("graph world", smoke.graph_world, Path(tmp))
         if world:
             smoke.phase("graph path", smoke.graph_path, world, Path(tmp))
+
+
+def run_pipeline_phases(smoke: Smoke) -> None:
+    """Phases 14-15, the whole pipeline, in a temporary directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        world = smoke.phase("pipeline world", smoke.pipeline_world, Path(tmp))
+        if world:
+            smoke.phase("pipeline", smoke.pipeline, world)
 
 
 def run_phases(smoke: Smoke) -> None:
@@ -1644,6 +2002,7 @@ def main() -> int:
         run_phases(smoke)
         run_eref_phases(smoke)
         run_graph_phases(smoke)
+        run_pipeline_phases(smoke)
     if smoke.failures:
         say("FAILED: " + "; ".join(smoke.failures))
         return 1

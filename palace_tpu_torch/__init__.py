@@ -1,12 +1,17 @@
 """palace_tpu_torch — the PyTorch/CUDA port of palace_tpu for NVIDIA Hopper.
 
 The JAX package ``palace_tpu`` stays the reference; this package is a
-second implementation of its contig-scoring stage (contig FASTA →
-``node_scores.out``) and its eref k-mer reference search (reads +
-phagedb → ``ref_names.txt``) in PyTorch, with hand-written CUDA kernels
-for ``sm_90a`` in place of the Pallas TPU kernels, and of its host stages
-from mapped reads to path FASTA (BAM + FASTG → junction graph → matching
-→ path FASTA):
+second implementation of the whole PALACE pipeline in PyTorch, with
+hand-written CUDA kernels for ``sm_90a`` in place of the Pallas TPU
+kernels:
+
+    python -m palace_tpu_torch --config config.txt [--force] [--device cpu]
+
+runs the six steps from a ``key=value`` config to the final phage FASTA:
+the contig-scoring stage (contig FASTA → ``node_scores.out``) and the
+eref k-mer reference search (reads + phagedb → ``ref_names.txt``) on the
+card, and the host stages (BAM + FASTG → junction graph → matching →
+filters → final FASTA) on the host.
 
 * ``palace_tpu_torch.ops``    — host 2-bit packer, the transition-count
   encoder, k-mer hashing, the count table, the window scan, and
@@ -21,6 +26,9 @@ from mapped reads to path FASTA (BAM + FASTG → junction graph → matching
   ``palace_native`` program, or Python), and the graph filter.
 * ``palace_tpu_torch.matching``, ``palace_tpu_torch.assembly`` — the
   graph decomposition and the path FASTA.
+* ``palace_tpu_torch.filters`` — the filter stages of steps 4-6.
+* ``palace_tpu_torch.pipeline`` — the stage engine, the external tools'
+  wrappers and the six-step driver; ``config`` parses its config file.
 * ``palace_tpu_torch.native`` — the host C++ sources and their g++ build.
 
 It imports neither JAX nor ``palace_tpu``.  Entry points run on the

@@ -1,4 +1,10 @@
-"""Command-line tools of the port:
+"""Command-line tools of the port.  The whole pipeline, the reference's
+``palace --config`` (its six steps, ``pipeline/driver.py``):
+
+    python -m palace_tpu_torch --config config.txt [--force] [--device cuda|cpu]
+
+It runs on the CUDA device unless ``--device cpu``, and exits nonzero
+without a card.  Each stage alone:
 
     python -m palace_tpu_torch score <contigs.fasta> <out> [--model PT]
         [--batch N] [--dtype float32|bfloat16|float16] [--device cuda|cpu]
@@ -104,6 +110,10 @@ def _cmd_makefa(args) -> int:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0].startswith("--") and argv[0] != "--help":
+        from palace_tpu_torch.pipeline.driver import main as pipeline_main
+
+        return pipeline_main(argv)
     if argv and argv[0] == "matching":
         from palace_tpu_torch.matching.solver import main as matching_main
 

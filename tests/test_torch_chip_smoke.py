@@ -235,3 +235,119 @@ def test_make_graph_world_plants_what_the_graph_finds(tmp_path):
     assert len(heads) == 80
     assert sum(h[1:].split(":")[0].rstrip(";").endswith("'") for h in heads) == 40
     assert chip_smoke.canonical_junction("b", "+", "a", "-") == ("a", "+", "b", "-")
+
+
+SMALL_GCN = dict(gcn_dim=16, cnn_dim=8, fc_dim=8)
+
+
+def _small_pipeline_world(monkeypatch):
+    """The pipeline world at a size the CPU runs in seconds: 3 phages, 50
+    other contigs, 20 decoys, a small-config checkpoint (the scorer's
+    widths but ``fnode_num``, which the encoder fixes, cut) and batches of
+    16.  k = 20: at k = 16 this world's ~43,000 reads saturate 94 % of a
+    2^16-slot table and every decoy reference is reported, at k = 20 only
+    the planted ones are (``SMALL_K``, the small eref world's k)."""
+    from palace_tpu_torch.models import gcn
+
+    monkeypatch.setattr(gcn, "DEFAULT_CONFIG", gcn.GCNConfig(**SMALL_GCN))
+    monkeypatch.setattr(chip_smoke, "PIPELINE_PHAGES", 3)
+    monkeypatch.setattr(chip_smoke, "PIPELINE_OTHERS", 50)
+    monkeypatch.setattr(chip_smoke, "PIPELINE_DECOYS", 20)
+    monkeypatch.setattr(chip_smoke, "PIPELINE_KEYS",
+                        {"kmer_k": chip_smoke.SMALL_K, "score_batch_size": 16})
+
+
+def test_reference_state_dict_round_trips():
+    from palace_tpu_torch.models import gcn
+
+    cfg = gcn.GCNConfig(**SMALL_GCN)
+    params = gcn.init_params(torch.Generator().manual_seed(1), cfg)
+    state = chip_smoke.reference_state_dict(params, cfg)
+    assert state["pnode_d.weight"].shape == (12288, 12288) and "lns.0.weight" in state
+    back = gcn.params_from_numpy_state({k: v.numpy() for k, v in state.items()}, cfg)
+    assert back.keys() == params.keys()
+    assert all(torch.equal(back[k], params[k]) for k in params)
+
+
+def test_reconstructed_finds_rotations_and_reverse_complements(tmp_path):
+    from palace_tpu_torch.io.fasta import write_fasta
+
+    rng = np.random.default_rng(5)
+    g1, g2, g3 = ("".join(rng.choice(list("ACGT"), n)) for n in (60, 40, 30))
+    genomes = [dict(name="c", genome=g1, circular=True),
+               dict(name="l", genome=g2, circular=False),
+               dict(name="x", genome=g3, circular=False)]
+    rot = g1[17:] + g1[:17]
+    write_fasta(tmp_path / "f.fasta", [("a", rot[:25] + "N" * 50 + rot[25:]),
+                                       ("b", chip_smoke._rc(g2)), ("c", g3[1:]),
+                                       ("d", g2[5:] + g2[:5]), ("e", "ACGT")])
+    assert chip_smoke.reconstructed(tmp_path / "f.fasta", genomes) == (["c", "l"], 3)
+    write_fasta(tmp_path / "g.fasta", [("a", chip_smoke._rc(rot)), ("b", g2), ("c", g3)])
+    assert chip_smoke.reconstructed(tmp_path / "g.fasta", genomes) == (["c", "l", "x"], 0)
+
+
+def test_make_pipeline_world_runs_through_both_drivers(monkeypatch, tmp_path):
+    """The small pipeline world through the port's driver on the CPU (its
+    default scorer reads the world's checkpoint) reconstructs every
+    planted genome and reports exactly the planted references; the JAX
+    driver on a copy, scoring with the same checkpoint, writes the same
+    references and final FASTA, and scores within 1e-5."""
+    from palace_tpu.config import PalaceConfig as JaxConfig
+    from palace_tpu.models import gcn as jgcn
+    from palace_tpu.models import scoring as jscoring
+    from palace_tpu.pipeline.driver import run_pipeline as jax_run_pipeline
+    from palace_tpu_torch.config import PalaceConfig
+    from palace_tpu_torch.models.scoring import read_scores
+    from palace_tpu_torch.pipeline.driver import run_pipeline
+
+    _small_pipeline_world(monkeypatch)
+    world = chip_smoke.make_pipeline_world(
+        tmp_path / "port", n_phages=3, n_others=50, n_decoys=20,
+        config_keys=chip_smoke.PIPELINE_KEYS)
+    assert world["n_contigs"] > 50 and sum(g["circular"] for g in world["genomes"]) == 2
+    heads = [l for l in world["fasta"].read_text().splitlines() if l.startswith(">")]
+    assert len(heads) == world["n_contigs"] and all("_length_" in h and "_cov_" in h
+                                                   for h in heads)
+    shutil.copytree(tmp_path / "port", tmp_path / "jax")
+    cfg_j = tmp_path / "jax" / "config.txt"
+    cfg_j.write_text(cfg_j.read_text().replace(str(tmp_path / "port"), str(tmp_path / "jax")))
+
+    final = run_pipeline(PalaceConfig.from_file(world["config"]), device="cpu")
+    found, others = chip_smoke.reconstructed(final, world["genomes"])
+    assert found == [g["name"] for g in world["genomes"]]
+    out = world["out"] / "03-search"
+    hits = [int(l.split("\t")[1]) for l in (out / "virome_ref_names.txt").read_text().splitlines()]
+    assert sorted(world["ref_names"][i - 1] for i in hits) == ["phage1", "phage2", "phage3"]
+
+    jcfg = jgcn.GCNConfig(**SMALL_GCN)
+    params = jgcn.load_torch_state_dict(str(world["model"]), jcfg)
+
+    def jax_scorer(fasta, out_path):
+        return jscoring.score_fasta(params, fasta, out_path, jcfg, batch_size=16)
+
+    final_j = jax_run_pipeline(JaxConfig.from_file(cfg_j), scorer=jax_scorer)
+    assert final.read_bytes() == final_j.read_bytes()
+    jout = tmp_path / "jax" / "output" / "03-search"
+    assert (out / "virome_ref_names.txt").read_bytes() == \
+        (jout / "virome_ref_names.txt").read_bytes()
+    got, want = read_scores(out / "node_scores.out"), read_scores(jout / "node_scores.out")
+    assert list(got) == list(want) and max(abs(got[k] - want[k]) for k in want) <= 1e-5
+
+
+def test_pipeline_phases_run_on_the_cpu_at_a_small_size(monkeypatch):
+    """Phases 14-15 at the small size on the CPU, where every wrapper takes
+    its plain version: every check passes except that the pipeline
+    launched the card's kernels."""
+    _small_pipeline_world(monkeypatch)
+    smoke = chip_smoke.Smoke("cpu")
+    chip_smoke.run_pipeline_phases(smoke)
+    rec = smoke.records["pipeline"]
+    assert smoke.failures == [
+        f"pipeline launched {name} {n} times (got 0)"
+        for name, n in (("transition_counts", rec["n_batches"]),
+                        ("sage_rounds", rec["n_batches"]),
+                        ("conv_head", 3 * rec["n_batches"]), ("scan_chunk", rec["n_chunks"]))]
+    assert rec["n_batches"] == 4 and rec["n_chunks"] > 1
+    assert rec["found"] == ["phage1", "phage2", "phage3"] and rec["rescore_err"] == 0
+    assert {f"step{i}" for i in range(1, 7)} == {k.split(".")[0] for k in rec["steps"]}
+    assert smoke.records["pipeline_world"]["n_pairs"] > 10_000

@@ -55,7 +55,10 @@ def test_every_module_imports_without_jax():
             "palace_tpu_torch.ops.count_table", "palace_tpu_torch.search.eref",
             "palace_tpu_torch.search.refs", "palace_tpu_torch.io.fastq_native",
             "palace_tpu_torch.native._build", "palace_tpu_torch.graph.native",
-            "palace_tpu_torch.matching.solver", "palace_tpu_torch.assembly.path_fa"} <= set(modules)
+            "palace_tpu_torch.matching.solver", "palace_tpu_torch.assembly.path_fa",
+            "palace_tpu_torch.filters.dedup", "palace_tpu_torch.filters.final_fa",
+            "palace_tpu_torch.pipeline.driver", "palace_tpu_torch.pipeline.stages",
+            "palace_tpu_torch.pipeline.external"} <= set(modules)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
