@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's two main paths once on one CUDA card,
-its host path from mapped reads to path FASTA, and the whole pipeline
-that composes them, from one config file to the final phage FASTA.
+its host path from mapped reads to path FASTA, the whole pipeline
+that composes them, from one config file to the final phage FASTA, and
+the scorer's training with checkpoint and resume.
 
     python3 chip_smoke.py
 
@@ -34,7 +35,10 @@ Phases, each of which must pass:
    (``make_assembly_contigs``: one 1 Mbp contig, a 50 kb (AT)n, 9 kb and
    100-N gaps, log-normal lengths), equal to its plain version, with the tiles
    it ran and its time with one block a row beside it; K1 on rows of
-   poly-A, (AT)n and (CAG)n beside random rows;
+   poly-A, (AT)n and (CAG)n beside random rows; K2 in bfloat16 and
+   float16 at a batch of 512 N(0, 1) inputs whose intermediates reach
+   4..8, within ``ops.compare.SAGE_LARGE_INTERMEDIATES``, the default
+   ``TOLERANCES`` counted beside it;
 4. the slice: ``score_sequences`` over 16 batches of 512 contigs in
    bfloat16 with every launch counter reset just before and read just
    after, and in float32; then one batch in float32 and in bfloat16
@@ -89,7 +93,24 @@ Phases, each of which must pass:
    exactly the planted references; every planted genome in the final
    FASTA; the seconds of each step and stage, the scorer's contigs/s,
    Phase A and B, and the peak device memory;
-16. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
+16. training, after the card is freed: 2,048 contigs of 10 kb with a
+   spread of GC shares, labelled 1 above the median, their features
+   through K1 (one launch); ``GCNConfig()`` in float32, batch 64,
+   dropout 0.2; (a) one step on the card (TF32 switched on globally)
+   and on the CPU, the losses within 1e-4 relative and each device's
+   gradients held to a float64 step, the card's error at most twice the
+   CPU's, the same step with TF32 and no guard outside; (b) ``fit`` for
+   two epochs on 1,792 contigs with the launch counters reset just before
+   and read just after: no kernel launched, the loss falls; (c) its
+   checkpoint saved and restored bit-equal, and a resumed ``fit`` against
+   the uninterrupted one under deterministic algorithms; (d) the trained
+   parameters through ``score_sequences`` (K1-K3, counted) on the 256
+   held-out contigs against the training module's eval forward, and the
+   held-out accuracy;
+17. where a training step's time goes: ms a step, contigs trained a
+   second, and the device time by part (``step_split``), with the peak
+   memory and the checkpoint's bytes and seconds;
+18. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -308,6 +329,44 @@ def large_conv_inputs(shape, dtype, device):
     bs = [torch.from_numpy(rng.normal(0, 0.1, 64).astype(np.float32)).to(device, dtype)
           for _ in range(3)]
     return x, ws, bs
+
+
+SAGE_ROUNDING_BATCH = 512  # a batch of the card test's N(0, 1) inputs
+
+
+def large_sage_inputs(batch: int, dtype, device):
+    """K2's inputs where its rounded intermediates reach 4..8: the
+    parameters and N(0, 1) inputs of ``tests/test_torch_cuda.py``'s
+    ``test_card_sage_rounds_close_to_plain`` (seed 3), at ``batch`` rows."""
+    from palace_tpu_torch.models import gcn
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    p = gcn.init_params(g)
+    p["ln.scale"] = 1 + 0.2 * torch.randn(128, generator=g)
+    p["ln.bias"] = 0.2 * torch.randn(128, generator=g)
+    xp = torch.randn(batch, 4096, 3, generator=g).to(device, dtype)
+    xf = torch.randn(batch, 64, 3, generator=g).to(device, dtype)
+    return xp, xf, gcn.sage_weight_stack(p, dtype).to(device)
+
+
+def sage_peak(xp, xf, w) -> float:
+    """The largest magnitude among K2's rounded intermediates, in float32:
+    round 1's p- and f-node activations and their LayerNorm, round 2's lift
+    and product, and the output."""
+    from palace_tpu_torch.ops import kernels
+
+    xp, xf, w = xp.float(), xf.float(), w.float()
+    B, f = xp.shape[0], xf.shape[1]
+    Wr1, Wl1, Wr2f, Wl2, Wl11, Wr11, b1, b2, b11, ln_s, ln_b = kernels._unstack(w, xp.shape[2])
+    lifted1 = xf @ Wl1 + b1
+    xp1 = torch.relu(lifted1[:, :, None] + (xp @ Wr1).reshape(B, f, -1, w.shape[1]))
+    xf1 = torch.relu(xp1.mean(dim=2) @ Wl2 + b2 + xf @ Wr2f)
+    xp1 = xp1.reshape(B, -1, w.shape[1])
+    xp1n = kernels._layer_norm_f32(xp1, ln_s, ln_b)
+    lifted2 = kernels._layer_norm_f32(xf1, ln_s, ln_b) @ Wl11 + b11
+    prod = xp1n @ Wr11
+    out = torch.relu(lifted2[:, :, None] + prod.reshape(B, f, -1, w.shape[1]))
+    return max(float(t.abs().max()) for t in (lifted1, xp1, xf1, xp1n, lifted2, prod, out))
 
 
 def conv_sums(x, weights, biases, acc_dtype):
@@ -626,6 +685,101 @@ PIPELINE_RESCORED = 64   # contigs rescored on the CPU through the plain path
 PHAGE_DEPTH, OTHER_DEPTH, BAM_DEPTH = 30, 5, 5
 READ_LEN, FRAGMENT = 150, 350
 SPLIT_READS = 6          # split reads a planted junction (MIN_COUNT is 5)
+
+
+TRAIN_SEED = 17
+TRAIN_CONTIGS = 2048
+TRAIN_HELD_OUT = 256     # 1,792 to train on: 28 batches of 64 an epoch
+TRAIN_BATCH = 64
+TRAIN_EPOCHS = 2
+TRAIN_LR = 1e-4
+TRAIN_TIMED_STEPS = 10
+TRAIN_PROFILED_STEPS = 3
+TRAIN_LOSS_RTOL = 1e-4   # one step on the card against the CPU
+GRAD_ERR_RATIO = 2.0     # the card's gradient error from float64 against the CPU's
+RESUME_RTOL = 1e-5       # a resumed fit against the uninterrupted one
+TRAIN_PARTS = ("gcn.lift", "gcn.sage", "gcn.conv", "gcn.fc")  # train_forward's ranges
+
+
+def train_cfg():
+    """The model the training phase trains: ``GCNConfig()`` at its
+    published width, dropout 0.2."""
+    from palace_tpu_torch.models.gcn import GCNConfig
+
+    return GCNConfig()
+
+
+def train_features(seqs: list, device: torch.device) -> torch.Tensor:
+    """The contigs' features through K1 on ``device``, as the scorer makes
+    them (``features_from_bytes`` of their ``byte_batch``)."""
+    from palace_tpu_torch.ops.encoder import byte_batch, features_from_bytes
+
+    return features_from_bytes(*[t.to(device) for t in byte_batch(seqs)])
+
+
+def cuda_times_ms(fn, iters: int, warmup: int = 3) -> list:
+    """Milliseconds of each of ``iters`` calls of ``fn`` on the card, from
+    CUDA events around each, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events]
+
+
+def step_split(events, attr: str = "self_device_time_total") -> dict:
+    """One training step's time by part, in ms, from torch.profiler's
+    events: an op's own time (``attr``: its kernels' device time) goes to
+    the ``TRAIN_PARTS`` range around it (``<part> fwd``); a backward op's
+    to the range of the forward op whose ``sequence_nr`` its autograd node
+    carries (``<part> bwd``); Adam's to ``adam``; the rest (the loss, the
+    gradients' zeroing) to ``other fwd`` / ``other bwd``."""
+    def part(e):
+        while e is not None:
+            if e.name in TRAIN_PARTS:
+                return e.name
+            if e.name.startswith("Optimizer.step"):
+                return "adam"
+            e = e.cpu_parent
+        return None
+
+    def node(e):
+        while e is not None:
+            if e.name.startswith("autograd::engine::evaluate_function"):
+                return e
+            e = e.cpu_parent
+        return None
+
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    forward = {}
+    for e in cpu:
+        if e.sequence_nr >= 0 and node(e) is None and part(e) is not None:
+            forward.setdefault(e.sequence_nr, part(e))
+    out: dict = {}
+    for e in cpu:
+        t = getattr(e, attr)
+        if not t or e.name in TRAIN_PARTS:
+            continue
+        n = node(e)
+        if n is not None:
+            key = f"{forward.get(n.sequence_nr, 'other')} bwd"
+        else:
+            key = part(e) or "other"
+            key = key if key == "adam" else f"{key} fwd"
+        out[key] = out.get(key, 0.0) + t / 1e3
+    return out
+
+
+def set_tf32(on: bool) -> None:
+    """The global TF32 flags of cuBLAS and cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
 
 
 def reference_state_dict(params: dict, cfg) -> dict:
@@ -1092,6 +1246,29 @@ class Smoke:
                        f"of float64: {res['kernel']}")
             self.check(not res["one mma chain a tile"]["ok"],
                        f"one mma chain a tile falls outside it: {res['one mma chain a tile']}")
+
+    def sage_rounding(self):
+        """K2 where its rounded intermediates reach 4..8, against its plain
+        version within ``compare.SAGE_LARGE_INTERMEDIATES``, one ulp at
+        that magnitude; the default ``TOLERANCES`` counted beside it."""
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.ops.compare import SAGE_LARGE_INTERMEDIATES, TOLERANCES, compare
+
+        for dt in (torch.bfloat16, torch.float16):
+            xp, xf, w = large_sage_inputs(SAGE_ROUNDING_BATCH, dt, self.dev)
+            peak = sage_peak(xp, xf, w)
+            got, want = kernels.sage_rounds(xp, xf, w), kernels.sage_rounds_plain(xp, xf, w)
+            res = {name: compare(got, want, tol) for name, tol in (
+                ("default", TOLERANCES[dt]), ("4..8", SAGE_LARGE_INTERMEDIATES[dt]))}
+            say(f"  K2 {DT_NAME[dt]} at batch {SAGE_ROUNDING_BATCH} of N(0, 1) inputs, "
+                f"intermediates up to {peak:.3f}; against the plain version: " + "; ".join(
+                    f"{name} {r['ok']} ({r['steps']} of {got.numel()} elements stepped, max "
+                    f"|error| {r['max_abs_err']:.6g})" for name, r in res.items()))
+            self.check(4 <= peak < 8, f"K2 {DT_NAME[dt]}: the intermediates reach 4..8 "
+                                      f"({peak:.3f})")
+            self.check(res["4..8"]["ok"], f"K2 {DT_NAME[dt]} within "
+                                          f"{SAGE_LARGE_INTERMEDIATES[dt]}: {res['4..8']}")
+            del got, want
 
     # -- phase 4 -----------------------------------------------------------
     def slice(self, params, contigs):
@@ -1894,6 +2071,287 @@ class Smoke:
             phase_a_s=count["seconds"], phase_b_s=scan["seconds"], rescore_err=err,
             found=found, others=others)
 
+    # -- phases 16-17: training -------------------------------------------
+    def train_world(self) -> dict:
+        """``make_contigs(2048, 10 kb, gc_spread)``, labelled 1 above the
+        median GC share; their features through K1 on the card with the
+        launch counters reset just before and read just after; a seeded
+        split of 1,792 to train on and 256 held out."""
+        from palace_tpu_torch.ops import kernels
+
+        contigs = make_contigs(TRAIN_CONTIGS, CONTIG_LEN, TRAIN_SEED, gc_spread=True)
+        gc = np.array([(s.count("G") + s.count("C")) / len(s) for _, s in contigs])
+        labels = torch.from_numpy((gc > np.median(gc)).astype(np.int64))
+        kernels.reset_launches()
+        feats = train_features([s for _, s in contigs], self.dev)
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        self.check(launches["transition_counts"] == 1,
+                   f"training features of {len(contigs)} contigs through K1: launched "
+                   f"transition_counts once (got {launches['transition_counts']})")
+        perm = np.random.default_rng(TRAIN_SEED).permutation(len(contigs))
+        held, train = np.sort(perm[:TRAIN_HELD_OUT]), perm[TRAIN_HELD_OUT:]
+        say(f"  {len(contigs)} contigs of {CONTIG_LEN} bp, {int(labels.sum())} labelled 1 "
+            f"(GC above the median {np.median(gc):.4f}); features {tuple(feats.shape)} "
+            f"{feats.dtype}; {len(train)} to train on, {len(held)} held out")
+        return dict(contigs=contigs, labels=labels, feats=feats,
+                    train=torch.from_numpy(train), held=held)
+
+    def train_step_against_cpu(self, world: dict):
+        """Check a: one step at batch 64, dropout off, same parameters and
+        batch, on the card (float32, TF32 switched on globally: the training
+        path must keep float32) and on the CPU (float32): the losses within
+        ``TRAIN_LOSS_RTOL``; each gradient tensor, over its own largest
+        magnitude, held to a float64 step on the card.  The card's worst
+        error may be at most ``GRAD_ERR_RATIO`` times the CPU's: its step
+        is as exact as the CPU's.  At the published width and these
+        features float32 itself lies ~4e-3 from float64 on either device,
+        so a fixed 1e-4 between two float32 runs cannot hold; the same
+        step with TF32 and no guard must fall outside."""
+        import dataclasses
+
+        from palace_tpu_torch.models.gcn import (TrainableGCN, init_params,
+                                                 model_inputs_from_features)
+        from palace_tpu_torch.models.train import loss_fn, value_and_grad
+
+        cfg = dataclasses.replace(train_cfg(), drop_rate=0.0)
+        params = init_params(torch.Generator(device=self.dev).manual_seed(TRAIN_SEED), cfg)
+        idx = world["train"][:TRAIN_BATCH]
+        xb, yb = world["feats"][idx.to(self.dev)], world["labels"][idx]
+        cpu = torch.device("cpu")
+
+        def step(dev, dtype, tf32=False, guard=True):
+            model = TrainableGCN(params, cfg).to(dev, dtype)
+            x_p, x_f = model_inputs_from_features(xb.to(dev, dtype), cfg)
+            set_tf32(tf32)
+            try:
+                if guard:
+                    loss, grads = value_and_grad(model, x_p, x_f, yb.to(dev), cfg)
+                else:  # value_and_grad without full_float32
+                    loss = loss_fn(model.params(), x_p, x_f, yb.to(dev), cfg)
+                    loss.backward()
+                    loss = loss.detach()
+                    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                             for n, p in model.params().items()}
+            finally:
+                set_tf32(False)
+            return float(loss), {n: g.detach().double().cpu() for n, g in grads.items()}
+
+        def errs(grads, ref):
+            """max |g - ref| / max |ref| of each tensor."""
+            out = {}
+            for name, want in ref.items():
+                scale = float(want.abs().max())
+                d = float((grads[name] - want).abs().max())
+                out[name] = d / scale if scale else (d and float("inf"))
+            return out
+
+        def err(grads, ref):
+            return max(errs(grads, ref).values())
+
+        loss64, ref = step(self.dev, torch.float64)
+        loss_c, card = step(self.dev, torch.float32, tf32=True)
+        loss_h, host = step(cpu, torch.float32)
+        _, bare = step(self.dev, torch.float32, tf32=True, guard=False)
+        rel = abs(loss_c - loss_h) / abs(loss_h)
+        self.check(rel <= TRAIN_LOSS_RTOL, f"one step at batch {TRAIN_BATCH}, dropout off, TF32 "
+                                           f"on globally: loss {loss_c:.7f} on the card, "
+                                           f"{loss_h:.7f} on the CPU ({loss64:.7f} in float64), "
+                                           f"{rel:.3g} relative <= {TRAIN_LOSS_RTOL}")
+        e_card, e_cpu, e_bare = err(card, ref), err(host, ref), err(bare, ref)
+        e_pair = err(card, host)
+        say(f"  gradients over their largest magnitude, worst of {len(ref)} tensors: card "
+            f"float32 {e_card:.3g} from float64, CPU float32 {e_cpu:.3g}, card from CPU "
+            f"{e_pair:.3g}; with TF32 and no guard {e_bare:.3g}")
+        for name, e in (("card", errs(card, ref)), ("CPU", errs(host, ref))):
+            say(f"    {name} float32, the largest by tensor: " + ", ".join(
+                f"{n} {v:.3g}" for n, v in sorted(e.items(), key=lambda kv: -kv[1])[:6]))
+        self.check(e_card <= GRAD_ERR_RATIO * e_cpu,
+                   f"the card's float32 gradients are as exact as the CPU's: {e_card:.3g} <= "
+                   f"{GRAD_ERR_RATIO} x {e_cpu:.3g}")
+        self.check(e_bare > GRAD_ERR_RATIO * e_cpu,
+                   f"TF32 without the guard falls outside: {e_bare:.3g} > {GRAD_ERR_RATIO} x "
+                   f"{e_cpu:.3g}")
+        self.records["train_step_cpu"] = dict(loss_rel=rel, grad_err_card=e_card,
+                                              grad_err_cpu=e_cpu, grad_err_pair=e_pair,
+                                              grad_err_tf32=e_bare)
+
+    def train_learns(self, world: dict, tmp: Path) -> dict:
+        """Check b: ``fit`` for two epochs on the card, the launch counters
+        reset just before and read just after (the training path launches no
+        kernel: JAX's trains through XLA, not Pallas); the mean loss falls
+        from epoch 1 to 2 and nothing is NaN.  Then check c: the state saved
+        and restored bit-equal, and a resumed ``fit`` against the
+        uninterrupted one from the same state."""
+        from palace_tpu_torch.models.checkpoint import (checkpoint_path, restore_train_state,
+                                                        save_train_state)
+        from palace_tpu_torch.models.gcn import init_params
+        from palace_tpu_torch.models.train import adam_moments, fit, init_train_state
+        from palace_tpu_torch.ops import kernels
+
+        cfg, dev, cuda = train_cfg(), self.dev, self.dev.type == "cuda"
+        feats, labels = world["feats"][world["train"].to(dev)], world["labels"][world["train"]]
+        n_steps = TRAIN_EPOCHS * -(-len(labels) // TRAIN_BATCH)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, losses = fit(feats, labels, cfg, epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
+                            learning_rate=TRAIN_LR, seed=TRAIN_SEED, device=dev)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        n_params = sum(p.numel() for p in state.model.parameters())
+        say(f"  fit: {state.step} steps of {TRAIN_BATCH} ({TRAIN_EPOCHS} epochs of {len(labels)}), "
+            f"{cfg} ({n_params} parameters), lr {TRAIN_LR}: {wall:.3f} s with the "
+            f"initialisation, {n_steps * TRAIN_BATCH / wall:.1f} contigs/s; epoch losses "
+            f"{losses}; peak device memory {peak / 2**30:.3f} GiB; launches {launches}")
+        self.check(not any(launches.values()), f"the training path launched no kernel "
+                                              f"({launches})")
+        finite = all(bool(torch.isfinite(p).all()) for p in state.model.parameters())
+        fit_steps = state.step
+        self.check(fit_steps == n_steps and losses[-1] < losses[0] and finite
+                   and bool(np.isfinite(losses).all()),
+                   f"{fit_steps} steps; mean loss falls from epoch 1 to {TRAIN_EPOCHS} "
+                   f"({losses[0]:.6f} -> {losses[-1]:.6f}); losses and parameters finite")
+
+        # check c: the round trip, then a resumed fit against the uninterrupted one
+        ckpt = tmp / "ckpt"
+        t0 = time.perf_counter()
+        save_train_state(ckpt, state)
+        save_s = time.perf_counter() - t0
+        nbytes_ckpt = checkpoint_path(ckpt, state.step).stat().st_size
+        template = init_train_state(init_params(torch.Generator(device=dev).manual_seed(
+            TRAIN_SEED + 1), cfg), cfg, TRAIN_LR, dev)
+        t0 = time.perf_counter()
+        restored = restore_train_state(ckpt, template)
+        if cuda:
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        (mu, nu, count), (mu2, nu2, count2) = adam_moments(state), adam_moments(restored)
+        equal = (restored.step == state.step and count == count2 and all(
+            torch.equal(p, restored.model.params()[n]) and torch.equal(mu[n], mu2[n])
+            and torch.equal(nu[n], nu2[n]) for n, p in state.model.params().items()))
+        say(f"  checkpoint: {nbytes_ckpt} bytes, saved in {save_s:.3f} s, restored in "
+            f"{restore_s:.3f} s")
+        self.check(equal, f"checkpoint of step {state.step} saved and restored on the card: "
+                          f"parameters, Adam's moments and step, the train step bit-equal")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            _, cont = fit(feats, labels, cfg, epochs=1, batch_size=TRAIN_BATCH,
+                          learning_rate=TRAIN_LR, seed=TRAIN_SEED + 2, init_state=state,
+                          device=dev)
+            resumed, res = fit(feats, labels, cfg, epochs=1, batch_size=TRAIN_BATCH,
+                               learning_rate=TRAIN_LR, seed=TRAIN_SEED + 2, ckpt_dir=ckpt,
+                               init_state=template, device=dev)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        rel = abs(res[0] - cont[0]) / abs(cont[0])
+        same = all(torch.equal(p, resumed.model.params()[n])
+                   for n, p in state.model.params().items())
+        self.check(resumed.step == state.step == n_steps + n_steps // TRAIN_EPOCHS
+                   and rel <= RESUME_RTOL,
+                   f"fit resumed from the checkpoint continues to step {resumed.step} (the "
+                   f"uninterrupted run: {state.step}); its epoch loss {res[0]:.7f} against "
+                   f"{cont[0]:.7f}, {rel:.3g} relative <= {RESUME_RTOL} (deterministic "
+                   f"algorithms; parameters {'bit-equal' if same else 'not bit-equal'})")
+        self.records["train"] = dict(
+            wall_s=wall, steps=fit_steps, losses=losses, peak_bytes=peak, launches=launches,
+            n_params=n_params, ckpt_bytes=nbytes_ckpt, save_s=save_s, restore_s=restore_s,
+            resume_rel=rel, resume_bit_equal=same)
+        del template, resumed
+        return state
+
+    def trained_through_kernels(self, world: dict, state):
+        """Check d: the trained parameters in ``GCNScorer`` score the held-out
+        contigs through ``score_sequences`` on the card (K1-K3, the counters
+        reset just before and read just after), against the training
+        module's eval forward on their K1 features; the held-out accuracy."""
+        from palace_tpu_torch.models.gcn import model_inputs_from_features
+        from palace_tpu_torch.models.scoring import score_sequences
+        from palace_tpu_torch.ops import kernels
+
+        cfg, dev = train_cfg(), self.dev
+        held = [world["contigs"][i] for i in world["held"]]
+        kernels.reset_launches()
+        got = np.array([p for _, p in score_sequences(state.model.params(), held, cfg,
+                                                        batch_size=TRAIN_BATCH, device=dev)])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        n_batches = -(-len(held) // TRAIN_BATCH)
+        for name, n in (("transition_counts", n_batches), ("sage_rounds", n_batches),
+                        ("conv_head", 3 * n_batches)):
+            self.check(launches[name] == n, f"scoring the held-out contigs launched {name} "
+                                            f"{n} times (got {launches[name]})")
+        with torch.no_grad():
+            x_p, x_f = model_inputs_from_features(
+                world["feats"][torch.from_numpy(world["held"]).to(dev)], cfg)
+            want = state.model(x_p, x_f)[:, 1].cpu().numpy()
+        err = float(np.abs(got - want).max())
+        labels = world["labels"][torch.from_numpy(world["held"])].numpy()
+        acc = float(((got > 0.5) == labels).mean())
+        self.check(err <= PROB_ATOL, f"trained parameters through K1-K3 (score_sequences) "
+                                     f"against the training module's eval forward on "
+                                     f"{len(held)} held-out contigs: max |dp| {err:.3g} <= "
+                                     f"{PROB_ATOL}")
+        say(f"  held-out accuracy {acc:.4f} (P > 0.5 against GC above the median; not "
+            f"checked), probabilities {got.min():.4f}..{got.max():.4f}")
+        self.records["train_scored"] = dict(err=err, accuracy=acc, launches=launches)
+
+    def train_numbers(self, world: dict, state):
+        """ms a step (CUDA events, the median of ``TRAIN_TIMED_STEPS`` after
+        warm-up), contigs trained a second, and a step's device time by part
+        from torch.profiler, over ``TRAIN_PROFILED_STEPS`` steps after one."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from palace_tpu_torch.models.gcn import model_inputs_from_features
+        from palace_tpu_torch.models.train import train_step
+
+        cfg, dev = train_cfg(), self.dev
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 3)
+        idx = world["train"][:TRAIN_BATCH].to(dev)
+        x_p, x_f = model_inputs_from_features(world["feats"][idx], cfg)
+        y = world["labels"][world["train"][:TRAIN_BATCH]].to(dev)
+
+        def step():
+            train_step(state, x_p, x_f, y, gen, cfg, TRAIN_LR)
+
+        times = cuda_times_ms(step, TRAIN_TIMED_STEPS)
+        ms = float(np.median(times))
+        say(f"  train_step at batch {TRAIN_BATCH}, {DT_NAME[torch.float32]}: median {ms:.3f} ms "
+            f"({' / '.join(f'{t:.3f}' for t in times)}), {TRAIN_BATCH / ms * 1e3:.1f} "
+            f"contigs trained a second")
+        steps = torch.profiler.schedule(wait=0, warmup=1, active=TRAIN_PROFILED_STEPS, repeat=1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=steps) as prof:
+            for _ in range(1 + TRAIN_PROFILED_STEPS):
+                step()
+                prof.step()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        split = {k: v / TRAIN_PROFILED_STEPS for k, v in step_split(prof.events()).items()}
+        busy = sum(split.values())
+        # the device's own events, not the ranges' annotations on its timeline
+        kernel_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not e.is_user_annotation) / 1e3 / TRAIN_PROFILED_STEPS
+        if not busy:
+            say("  one step by part: not measured (the profiler saw no device time)")
+        else:
+            say(f"  a step by part (torch.profiler, device ms, the mean of "
+                f"{TRAIN_PROFILED_STEPS} steps; {busy:.3f} ms attributed of "
+                f"{kernel_ms:.3f} ms of device events): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items(),
+                                                               key=lambda kv: -kv[1])))
+        self.records["train_step"] = dict(ms=ms, times=times, split=split, busy_ms=busy,
+                                          kernel_ms=kernel_ms,
+                                          contigs_per_s=TRAIN_BATCH / ms * 1e3)
+
     def eref_against_cpu(self, tmp: Path):
         """``run_search`` on a small world (k = 20) on the card and on the
         CPU's plain path: byte-identical ``ref_names.txt``."""
@@ -1932,6 +2390,28 @@ def run_pipeline_phases(smoke: Smoke) -> None:
             smoke.phase("pipeline", smoke.pipeline, world)
 
 
+def run_train_phases(smoke: Smoke) -> None:
+    """Phases 16-17, training, after the card is freed of the earlier
+    phases' tables and models; checkpoints in a temporary directory."""
+    import gc
+
+    gc.collect()
+    if smoke.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        world = smoke.phase("training world", smoke.train_world)
+        if world:
+            smoke.phase("one training step against the CPU", smoke.train_step_against_cpu,
+                        world)
+            state = smoke.phase("training and checkpoints", smoke.train_learns, world,
+                                Path(tmp))
+            if state:
+                smoke.phase("trained parameters through the kernels",
+                            smoke.trained_through_kernels, world, state)
+                smoke.phase("where a training step's time goes", smoke.train_numbers, world,
+                            state)
+
+
 def run_phases(smoke: Smoke) -> None:
     """Phases 3 and 4 on ``smoke.dev``."""
     from palace_tpu_torch.models.gcn import init_params
@@ -1944,6 +2424,7 @@ def run_phases(smoke: Smoke) -> None:
         smoke.phase("K1 on an assembly's lengths", smoke.k1_on_assembly_lengths)
         smoke.phase("K1 on low-complexity rows", smoke.k1_low_complexity)
         smoke.phase("K3 where its outputs are large", smoke.conv_rounding)
+        smoke.phase("K2 where its intermediates reach 4..8", smoke.sage_rounding)
         smoke.phase("slice", smoke.slice, params, contigs)
         smoke.phase("where the time goes", smoke.where_the_time_goes, params, contigs)
         smoke.phase("slice against the plain versions", smoke.slice_against_plain, params)
@@ -2003,6 +2484,7 @@ def main() -> int:
         run_eref_phases(smoke)
         run_graph_phases(smoke)
         run_pipeline_phases(smoke)
+        run_train_phases(smoke)
     if smoke.failures:
         say("FAILED: " + "; ".join(smoke.failures))
         return 1

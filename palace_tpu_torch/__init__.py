@@ -18,7 +18,9 @@ filters → final FASTA) on the host.
   ``ops.kernels``: the four CUDA kernels (transition counts, SAGE rounds,
   conv head, good windows), each beside its plain PyTorch version.
 * ``palace_tpu_torch.models`` — the GCN scorer (eval forward) and the
-  scoring stage.
+  scoring stage; training (``models.train``: the training forward with
+  dropout, optax's Adam, ``train_step`` and ``fit``) and its checkpoints
+  (``models.checkpoint``).
 * ``palace_tpu_torch.search`` — the phage index and the eref stage.
 * ``palace_tpu_torch.io``     — FASTA/FASTQ (with the native FASTQ loader),
   BAM, FASTG, graph, path and BLAST files.

@@ -19,15 +19,23 @@ The final reshape scrambles (position, channel) exactly like
 ``torch.reshape(x_p, (-1, gcn_dim, PNODE_NUM))`` on the row-major
 (B·4096, 128) activations (phage_scoring.py:112), to stay compatible
 with reference checkpoints.
+
+Two forwards share the layers: ``forward`` (eval, through the kernels,
+held by ``GCNScorer``) and ``train_forward`` (plain tensor ops with
+dropout, for autograd, held by ``TrainableGCN``).  The kernels have no
+backward; JAX trains through XLA too, not through its Pallas kernels.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from palace_tpu_torch.ops import kernels
 
@@ -44,6 +52,7 @@ class GCNConfig:
     cnn_dim: int = 64            # CNN_HIDDEN_DIM
     fc_dim: int = 100            # FC_HIDDEN_DIM
     num_layers: int = 2          # GCN_LAYER_NUM
+    drop_rate: float = 0.2       # DROP_RATE
     conv_kernel: int = 8
 
     @property
@@ -199,19 +208,40 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """JAX ``_dropout``: keep each element with probability ``1 - rate`` and
+    scale what is kept by ``1 / (1 - rate)``; the identity when
+    ``generator`` is None or ``rate <= 0``.  The mask is drawn from
+    ``generator``, which must lie on ``x``'s device (``F.dropout`` would
+    draw from the global generator)."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 def _sage_layers(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
-                 cfg: GCNConfig) -> torch.Tensor:
-    """The SAGE rounds as plain tensor code, for depths other than 2."""
-    B, f = x_p.shape[0], cfg.fnode_num
+                 cfg: GCNConfig, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The SAGE rounds as plain tensor code, at any depth: the eval path for
+    depths other than 2, and the training path, which drops ``x_p`` and
+    then ``x_f`` after each round's relu (JAX's keys 2i and 2i+1), before
+    the LayerNorm between the rounds."""
+    B, f, pn = x_p.shape[0], cfg.fnode_num, cfg.pnode_num
     for i in range(cfg.num_layers):
-        # repeat(x_f) @ W == repeat(x_f @ W): lift the 64 f-nodes, then repeat
+        # repeat(x_f) @ W == repeat(x_f @ W): lift the 64 f-nodes, then add each
+        # to its 64 p-nodes by broadcasting (the same sums as a repeat; its
+        # backward is a sum, where repeat_interleave's accumulates atomically)
         lifted = x_f @ params[f"convs_1.{i}.lin_l.w"] + params[f"convs_1.{i}.lin_l.b"]
-        x_p = torch.relu(lifted.repeat_interleave(f, dim=1)
-                         + x_p @ params[f"convs_1.{i}.lin_r.w"])
+        root = x_p @ params[f"convs_1.{i}.lin_r.w"]
+        x_p = torch.relu(lifted[:, :, None, :] + root.reshape(B, f, pn // f, -1)
+                         ).reshape(B, pn, -1)
+        x_p = dropout(x_p, cfg.drop_rate, generator)
         agg_f = x_p.reshape(B, f, f, -1).mean(dim=1)  # mean over {i : i%64 == j}
         x_f = torch.relu(agg_f @ params[f"convs_2.{i}.lin_l.w"]
                          + params[f"convs_2.{i}.lin_l.b"]
                          + x_f @ params[f"convs_2.{i}.lin_r.w"])
+        x_f = dropout(x_f, cfg.drop_rate, generator)
         if i < cfg.num_layers - 1:
             x_p = _layer_norm(x_p, params["ln.scale"], params["ln.bias"])
             x_f = _layer_norm(x_f, params["ln.scale"], params["ln.bias"])
@@ -264,20 +294,73 @@ def forward(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
     return torch.softmax(logits, dim=1)
 
 
+@contextlib.contextmanager
+def full_float32() -> Iterator[None]:
+    """Full float32 products inside the block, whatever the global flags:
+    TF32 off in cuBLAS and in cuDNN (``torch.backends.cuda.matmul`` and
+    ``torch.backends.cudnn`` ``allow_tf32``), both restored on exit.
+    Training holds to JAX's float32 this way, forward and backward: TF32
+    would break the 1e-4 tolerance.  The flags are process-wide while the
+    block runs."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
+def train_forward(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
+                  cfg: GCNConfig = DEFAULT_CONFIG,
+                  generator: Optional[torch.Generator] = None,
+                  return_logits: bool = True) -> torch.Tensor:
+    """The training forward: JAX ``forward(..., dropout_key=key)``, which
+    runs through XLA and none of its kernels, in plain tensor ops at any
+    depth, so autograd can take its gradient.  (B,4096,3), (B,64,1) →
+    (B,2) logits (or softmax probabilities).
+
+    Dropout at rate ``cfg.drop_rate`` is drawn from ``generator`` at JAX's
+    six sites, in the order of JAX's keys: ``x_p`` and ``x_f`` after each
+    SAGE round's relu (keys 0-3), then after conv2's and conv3's relu (keys
+    4, 5; conv1 has none).  With no generator it is the eval forward in the
+    same ops.  The convs run through ``F.conv1d``, the counterpart of JAX's
+    ``conv_general_dilated`` on this path; on a card, call it inside
+    ``full_float32()``, backward included.  Its four parts run in the
+    profiler ranges ``gcn.lift``, ``gcn.sage``, ``gcn.conv`` and ``gcn.fc``;
+    each backward node carries its forward op's ``sequence_nr``."""
+    B = x_p.shape[0]
+    with record_function("gcn.lift"):
+        x_p, x_f = lift_inputs(params, x_p, x_f, cfg)
+    with record_function("gcn.sage"):
+        x_p = _sage_layers(params, x_p, x_f, cfg, generator)
+    with record_function("gcn.conv"):
+        x = x_p.reshape(B, cfg.gcn_dim, cfg.pnode_num)  # the channel scramble, as ``forward``
+        for i in (1, 2, 3):
+            x = torch.relu(F.conv1d(x, params[f"conv{i}.w"], params[f"conv{i}.b"]))
+            if i > 1:
+                x = dropout(x, cfg.drop_rate, generator)
+    with record_function("gcn.fc"):
+        x = torch.relu(x.reshape(B, cfg.flat_dim) @ params["d1.w"] + params["d1.b"])
+        logits = x @ params["d2.w"] + params["d2.b"]
+    return logits if return_logits else torch.softmax(logits, dim=1)
+
+
 def _buffer_name(name: str) -> str:
     return name.replace(".", "__")
 
 
 class GCNScorer(nn.Module):
     """The scorer as a module: the parameters are buffers (the model is
-    eval-only), so ``.to(device)`` / ``.to(dtype)`` move and cast them."""
+    eval-only), so ``.to(device)`` / ``.to(dtype)`` move and cast them.
+    Trained parameters (``TrainableGCN.params()``) go in as they are."""
 
     def __init__(self, params: Mapping[str, torch.Tensor], cfg: GCNConfig = DEFAULT_CONFIG):
         super().__init__()
         self.cfg = cfg
         self._names = list(params)
         for name, t in params.items():
-            self.register_buffer(_buffer_name(name), torch.as_tensor(t))
+            self.register_buffer(_buffer_name(name), torch.as_tensor(t).detach())
 
     def params(self) -> Params:
         return {n: getattr(self, _buffer_name(n)) for n in self._names}
@@ -292,3 +375,29 @@ class GCNScorer(nn.Module):
         dtype = getattr(self, _buffer_name("pnode_d.w")).dtype
         x_p, x_f = model_inputs_from_features(features.to(dtype), self.cfg)
         return self.forward(x_p, x_f, plain=plain)[:, 1]
+
+
+class TrainableGCN(nn.Module):
+    """The model to train: each parameter an ``nn.Parameter`` (a copy of the
+    one given), registered under its JAX name with the dots mangled as
+    ``GCNScorer`` mangles them.  ``params()`` gives them back under the JAX
+    names, in the layout of ``palace_tpu.models.gcn``."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor], cfg: GCNConfig = DEFAULT_CONFIG):
+        super().__init__()
+        self.cfg = cfg
+        self.names = list(params)
+        for name, t in params.items():
+            self.register_parameter(_buffer_name(name),
+                                    nn.Parameter(torch.as_tensor(t).detach().clone()))
+
+    def params(self) -> Params:
+        return {n: getattr(self, _buffer_name(n)) for n in self.names}
+
+    def forward(self, x_p: torch.Tensor, x_f: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                return_logits: bool = False) -> torch.Tensor:
+        """``train_forward`` in full float32: with ``generator`` dropout is
+        on; without it this is the eval forward in the same plain ops."""
+        with full_float32():
+            return train_forward(self.params(), x_p, x_f, self.cfg, generator, return_logits)

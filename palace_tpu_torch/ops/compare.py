@@ -41,6 +41,16 @@ CONV_LARGE_OUTPUTS = {
     torch.float16: Tolerance(1e-3, 2.0 ** -5, 3e-3),
 }
 
+#: The SAGE rounds (K2) where their rounded intermediates reach 4..8: round
+#: 1's p-node activations and their LayerNorm do so on N(0, 1) inputs (5.8
+#: and 6.4 at a batch of 16).  A rounding step there is one ulp at 4..8,
+#: twice the default's; the share and the rest of the bound are the default's.
+SAGE_LARGE_INTERMEDIATES = {
+    torch.float32: TOLERANCES[torch.float32],
+    torch.bfloat16: Tolerance(2e-3, 2.0 ** -5, 1e-3),
+    torch.float16: Tolerance(1e-3, 2.0 ** -8, 1e-3),
+}
+
 
 def compare(got: torch.Tensor, want: torch.Tensor, tolerance: Tolerance) -> dict:
     """``got`` against ``want`` (same shape) → ``{"ok", "max_abs_err",

@@ -183,6 +183,7 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "CONTIG_LEN", 2000)
     monkeypatch.setattr(chip_smoke, "LONG_CONTIG", 40_000)
     monkeypatch.setattr(chip_smoke, "ROUNDING_SHAPE", (2, 128, 300))
+    monkeypatch.setattr(chip_smoke, "SAGE_ROUNDING_BATCH", 2)
     _small_eref_world(monkeypatch)
     monkeypatch.setattr(chip_smoke, "EREF_JAX_HITS", _jax_hits_on_the_small_world(tmp_path))
     assert chip_smoke.EREF_JAX_HITS == 1
@@ -351,3 +352,72 @@ def test_pipeline_phases_run_on_the_cpu_at_a_small_size(monkeypatch):
     assert rec["found"] == ["phage1", "phage2", "phage3"] and rec["rescore_err"] == 0
     assert {f"step{i}" for i in range(1, 7)} == {k.split(".")[0] for k in rec["steps"]}
     assert smoke.records["pipeline_world"]["n_pairs"] > 10_000
+
+
+SMALL_TRAIN = dict(fnode_num=8, gcn_dim=16, cnn_dim=8, fc_dim=10)
+
+
+def _pooled(feats):
+    """K1's (B, 3·64·64) features summed over 8 × 8 blocks of 3-mer codes:
+    the (B, 3·8·8) width of the small config, GC share kept."""
+    return feats.reshape(-1, 3, 8, 8, 8, 8).sum(dim=(3, 5)).reshape(-1, 3 * 64)
+
+
+def test_train_phases_run_on_the_cpu_at_a_small_size(monkeypatch):
+    """Phases 16-17 at a small size on the CPU (the small config, K1's plain
+    features pooled to its width): every check passes except that the
+    features and the scorer launched the card's kernels."""
+    from palace_tpu_torch.models import gcn, scoring
+
+    monkeypatch.setattr(chip_smoke, "train_cfg", lambda: gcn.GCNConfig(**SMALL_TRAIN))
+    plain = chip_smoke.train_features
+    monkeypatch.setattr(chip_smoke, "train_features", lambda seqs, dev: _pooled(plain(seqs, dev)))
+    encode = scoring.features_from_bytes
+    monkeypatch.setattr(scoring, "features_from_bytes", lambda *rows: _pooled(encode(*rows)))
+    monkeypatch.setattr(chip_smoke, "cuda_times_ms",
+                        lambda fn, iters, warmup=3: [(fn(), 1.0)[1] for _ in range(iters)])
+    for name, value in (("TRAIN_CONTIGS", 96), ("TRAIN_HELD_OUT", 32), ("TRAIN_BATCH", 16),
+                        ("CONTIG_LEN", 2000), ("TRAIN_TIMED_STEPS", 2), ("TRAIN_LR", 1e-3)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    smoke = chip_smoke.Smoke("cpu")
+    chip_smoke.run_train_phases(smoke)
+    one = smoke.records["train_step_cpu"]
+    assert smoke.failures == [
+        "training features of 96 contigs through K1: launched transition_counts once (got 0)",
+        # the CPU has no TF32: the control step is the guarded one
+        f"TF32 without the guard falls outside: {one['grad_err_tf32']:.3g} > "
+        f"{chip_smoke.GRAD_ERR_RATIO} x {one['grad_err_cpu']:.3g}",
+        "scoring the held-out contigs launched transition_counts 2 times (got 0)",
+        "scoring the held-out contigs launched sage_rounds 2 times (got 0)",
+        "scoring the held-out contigs launched conv_head 6 times (got 0)"]
+    rec = smoke.records["train"]
+    assert rec["steps"] == 8 and rec["losses"][1] < rec["losses"][0]
+    assert not any(rec["launches"].values()) and rec["resume_bit_equal"]
+    assert rec["resume_rel"] == 0.0 and rec["ckpt_bytes"] > 0
+    assert one["loss_rel"] == 0.0 and one["grad_err_pair"] == 0.0
+    assert one["grad_err_card"] == one["grad_err_cpu"] == one["grad_err_tf32"] < 1e-4
+    assert smoke.records["train_scored"]["err"] <= chip_smoke.PROB_ATOL
+    assert smoke.records["train_step"]["busy_ms"] == 0  # no device time on the CPU
+
+
+def test_step_split_names_every_part_of_a_step():
+    """``step_split`` on a CPU profile of one small training step, by CPU
+    time: the four parts forward and backward, Adam, and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from palace_tpu_torch.models import gcn
+    from palace_tpu_torch.models.train import init_train_state, train_step
+
+    cfg = gcn.GCNConfig(**SMALL_TRAIN)
+    gen = torch.Generator().manual_seed(0)
+    state = init_train_state(gcn.init_params(gen, cfg), cfg, device="cpu")
+    x_p, x_f = gcn.model_inputs_from_features(torch.rand(4, 3 * cfg.pnode_num, generator=gen),
+                                              cfg)
+    y = torch.tensor([0, 1, 0, 1])
+    train_step(state, x_p, x_f, y, gen, cfg)  # Adam's state exists before the profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        train_step(state, x_p, x_f, y, gen, cfg)
+    split = chip_smoke.step_split(prof.events(), attr="self_cpu_time_total")
+    parts = {f"{p} {d}" for p in chip_smoke.TRAIN_PARTS for d in ("fwd", "bwd")}
+    assert parts | {"adam"} <= set(split) <= parts | {"adam", "other fwd", "other bwd"}
+    assert all(v > 0 for v in split.values())

@@ -10,7 +10,9 @@ PyTorch is installed:
 Tolerances are ``palace_tpu_torch.ops.compare.TOLERANCES``: float32 1e-4;
 bfloat16 2e-3 and float16 1e-3, with rare rounding steps of one ulp of an
 intermediate; the conv head at large outputs is held to its float64 sums
-within ``CONV_LARGE_OUTPUTS``.  Transition counts are integers and must be equal.  Without
+within ``CONV_LARGE_OUTPUTS``, the SAGE rounds where their intermediates
+reach 4..8 to their plain version within ``SAGE_LARGE_INTERMEDIATES``.
+Transition counts are integers and must be equal.  Without
 a card every test skips."""
 import numpy as np
 import pytest
@@ -19,7 +21,8 @@ import torch
 import chip_smoke
 from palace_tpu_torch.models import gcn as tgcn
 from palace_tpu_torch.ops import kernels
-from palace_tpu_torch.ops.compare import CONV_LARGE_OUTPUTS, TOLERANCES, compare
+from palace_tpu_torch.ops.compare import (CONV_LARGE_OUTPUTS, SAGE_LARGE_INTERMEDIATES,
+                                          TOLERANCES, compare)
 from palace_tpu_torch.ops.encoder import byte_batch
 
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
@@ -176,6 +179,19 @@ def test_card_sage_rounds_close_to_plain(cuda, dtype, B):
     assert kernels.LAUNCHES["sage_rounds"] == before + 1
     assert got.dtype == dtype and got.shape == (B, 4096, 128)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_card_sage_rounds_where_intermediates_reach_4_to_8(cuda, dtype):
+    """The previous test's inputs at a batch of 512: round 1's activations
+    and their LayerNorm reach 4..8, where a rounding step is one ulp of
+    that magnitude, 2^-8 in float16 (``SAGE_LARGE_INTERMEDIATES``)."""
+    xp, xf, w = chip_smoke.large_sage_inputs(chip_smoke.SAGE_ROUNDING_BATCH, dtype, cuda)
+    assert 4 <= chip_smoke.sage_peak(xp, xf, w) < 8
+    res = compare(kernels.sage_rounds(xp, xf, w), kernels.sage_rounds_plain(xp, xf, w),
+                  SAGE_LARGE_INTERMEDIATES[dtype])
+    assert res["ok"], res
 
 
 @pytest.mark.cuda

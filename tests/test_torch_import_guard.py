@@ -58,7 +58,8 @@ def test_every_module_imports_without_jax():
             "palace_tpu_torch.matching.solver", "palace_tpu_torch.assembly.path_fa",
             "palace_tpu_torch.filters.dedup", "palace_tpu_torch.filters.final_fa",
             "palace_tpu_torch.pipeline.driver", "palace_tpu_torch.pipeline.stages",
-            "palace_tpu_torch.pipeline.external"} <= set(modules)
+            "palace_tpu_torch.pipeline.external", "palace_tpu_torch.models.train",
+            "palace_tpu_torch.models.checkpoint"} <= set(modules)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
