@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's two main paths once on one CUDA card,
 its host path from mapped reads to path FASTA, the whole pipeline
-that composes them, from one config file to the final phage FASTA, and
-the scorer's training with checkpoint and resume.
+that composes them, from one config file to the final phage FASTA, the
+scorer's training with checkpoint and resume, and the scorer and its
+training across devices.
 
     python3 chip_smoke.py
 
@@ -110,7 +111,27 @@ Phases, each of which must pass:
 17. where a training step's time goes: ms a step, contigs trained a
    second, and the device time by part (``step_split``), with the peak
    memory and the checkpoint's bytes and seconds;
-18. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
+18. the GCN across devices, one rank: ``parallel.distributed.initialize``
+   with world size 1 (NCCL on the card), ``make_mesh``, then
+   ``score_sequences(mesh=...)`` over 16 batches of 512 GC-spread 10 kb
+   contigs at ``GCNConfig()`` in float32 and bfloat16 (the launch counters
+   reset just before and read just after) against the same call without a
+   mesh, and one ``train_step`` at batch 64 against the same step without
+   one (the loss within 1e-5 relative; the split parameters' gradients as
+   exact as the one-rank step's against a float64 step, at most
+   ``GRAD_ERR_RATIO`` times its error, as in 16 (a));
+19. the GCN across devices, two ranks sharing the one card under gloo
+   with their tensors on the card (``torch.multiprocessing.spawn``, a
+   ``file://`` store; NCCL will not put two ranks on one card), at
+   (data, model) = (2, 1) and (1, 2): on every rank the same scoring
+   within 2e-4 (float32) and 2e-2 (bfloat16) of phase 18's one-rank
+   probabilities, K1, K2 and K3 launched, one ``train_step`` held to the
+   one-rank step as in 18 with the updated shards within Adam's ±lr; under
+   (1, 2) a checkpoint written by rank 0 and restored on one rank equal to
+   the gathered state; each layout's contigs/s, each rank's peak device
+   memory and the collectives' ms a batch, of processes sharing one card
+   (not scaling);
+20. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -982,6 +1003,255 @@ def reconstructed(final_fasta: Path, genomes: list) -> tuple:
     found = [g["name"] for g in genomes if any(holds(b, g) for b in bodies)]
     others = sum(not any(holds(b, g) for g in genomes) for b in bodies)
     return found, others
+
+
+# -- phases 18-19: the GCN across devices --------------------------------------
+MESH_SEED = 19
+MESH_RANKS = 2                # two processes sharing the one card (phase 19)
+MESH_MODEL_PARALLEL = (1, 2)  # (data, model) = (2, 1), then (1, 2)
+MESH_LOSS_RTOL = 1e-5         # a sharded step's loss against the one-rank step's
+MESH_PARAM_ATOL = 1e-6        # updated shards, where Adam's sign does not flip
+MESH_PARAM_SHARE = 0.01       # the share of elements allowed past it, each within 2·lr
+MESH_TIMEOUT_S = 600
+#: a picklable callable each rank of phase 19 runs first (a CPU test's seam)
+MESH_SETUP = None
+MESH_HELD = ("pnode_d.w", "d1.w")  # the two split parameters
+
+
+def mesh_cfg():
+    """The model of phases 18-19: ``GCNConfig()`` at its published width,
+    dropout 0.2."""
+    from palace_tpu_torch.models.gcn import GCNConfig
+
+    return GCNConfig()
+
+
+def mesh_job(device: str) -> dict:
+    """What each rank of phases 18-19 rebuilds its world from, as this
+    module holds it when the phase starts."""
+    return dict(cfg=mesh_cfg(), n_contigs=N_CONTIGS, contig_len=CONTIG_LEN, batch=BATCH,
+                train_batch=TRAIN_BATCH, lr=TRAIN_LR, seed=MESH_SEED,
+                model_parallel=MESH_MODEL_PARALLEL, device=device, setup=MESH_SETUP)
+
+
+def mesh_world(job: dict, device: torch.device) -> dict:
+    """``n_contigs`` contigs with a spread of GC shares (the scored input),
+    parameters from the seed with d1 and d2 scaled (×3, ×30) so that the
+    probabilities spread, and one training batch of every
+    (n_contigs / train_batch)-th contig through K1, labelled 1 above the
+    median GC share: the same on every rank."""
+    from palace_tpu_torch.models.gcn import init_params, model_inputs_from_features
+
+    cfg = job["cfg"]
+    contigs = make_contigs(job["n_contigs"], job["contig_len"], job["seed"], gc_spread=True)
+    params = init_params(torch.Generator(device=device).manual_seed(job["seed"]), cfg)
+    params["d1.w"], params["d2.w"] = params["d1.w"] * 3.0, params["d2.w"] * 30.0
+    pick = [s for _, s in contigs[:: len(contigs) // job["train_batch"]][: job["train_batch"]]]
+    gc = np.array([(s.count("G") + s.count("C")) / len(s) for s in pick])
+    x_p, x_f = model_inputs_from_features(train_features(pick, device), cfg)
+    y = torch.from_numpy((gc > np.median(gc)).astype(np.int64)).to(device)
+    return dict(contigs=contigs, params=params, x_p=x_p, x_f=x_f, y=y)
+
+
+def mesh_step(world: dict, job: dict, mesh=None, device=None):
+    """One ``train_step`` at dropout ``cfg.drop_rate`` from the world's
+    parameters (a generator seeded alike on every rank): on ``device``, or
+    under ``mesh`` on this rank's data block.  Returns the loss and the
+    state, whose split parameters hold their gradients."""
+    from palace_tpu_torch.models.train import init_train_state, train_step
+    from palace_tpu_torch.parallel.mesh import data_sharding
+
+    cfg, lr = job["cfg"], job["lr"]
+    state = init_train_state(world["params"], cfg, lr, device=device, mesh=mesh)
+    dev = state.device
+    batch = [world[k] for k in ("x_p", "x_f", "y")]
+    if mesh is not None:
+        batch = [data_sharding(t, mesh) for t in batch]
+    gen = torch.Generator(device=dev).manual_seed(job["seed"] + 1)
+    _, loss = train_step(state, *batch, gen, cfg, lr)
+    return float(loss), state
+
+
+def mesh_grads64(world: dict, job: dict, device: torch.device) -> dict:
+    """The split parameters' gradients of the one-rank step in float64 (the
+    same batch and dropout masks): what each float32 route is held to."""
+    from palace_tpu_torch.models.gcn import TrainableGCN
+    from palace_tpu_torch.models.train import value_and_grad
+
+    cfg = job["cfg"]
+    model = TrainableGCN(world["params"], cfg).to(device, torch.float64)
+    gen = torch.Generator(device=device).manual_seed(job["seed"] + 1)
+    _, grads = value_and_grad(model, world["x_p"].double(), world["x_f"].double(), world["y"],
+                              cfg, gen)
+    return {n: grads[n].detach().clone() for n in MESH_HELD}
+
+
+def one_rank_reference(world: dict, job: dict, device: torch.device) -> dict:
+    """The one-rank step's loss, updated split parameters and gradients,
+    its float64 gradients, and how far its float32 gradients lie from them
+    (the worst of the split parameters, over each one's largest magnitude)."""
+    loss, state = mesh_step(world, job, device=device)
+    params = state.model.params()
+    ref = dict(loss=loss, params={n: params[n].detach().clone() for n in MESH_HELD},
+               grads={n: params[n].grad.clone() for n in MESH_HELD})
+    del state, params
+    ref["grads64"] = mesh_grads64(world, job, device)
+    ref["err64"] = max(float((ref["grads"][n].double() - g).abs().max() / g.abs().max())
+                       for n, g in ref["grads64"].items())
+    return ref
+
+
+def shard_diffs(state, ref: dict) -> dict:
+    """For each split parameter, against this rank's block of the one-rank
+    step (``one_rank_reference``): its gradient shard's largest error over
+    the whole float64 gradient's largest magnitude (``err64``) and over the
+    float32 one's (``grad_err``), the updated shard's largest difference and
+    the share of its elements past ``MESH_PARAM_ATOL``."""
+    from palace_tpu_torch.parallel.mesh import local_shard
+
+    params, out = state.model.params(), {}
+    for name in MESH_HELD:
+        spec = state.specs[name] if state.specs else ()
+
+        def block(t):
+            return local_shard(t, spec, state.mesh)
+
+        g = params[name].grad
+        g64 = (g.double() - block(ref["grads64"][name])).abs()
+        g32 = (g - block(ref["grads"][name])).abs()
+        d = (params[name].detach() - block(ref["params"][name])).abs()
+        out[name] = dict(err64=float(g64.max() / ref["grads64"][name].abs().max()),
+                         grad_err=float(g32.max() / ref["grads"][name].abs().max()),
+                         param_diff=float(d.max()),
+                         share=float((d > MESH_PARAM_ATOL).float().mean()),
+                         shape=tuple(params[name].shape))
+    return out
+
+
+def mesh_rank(rank: int, world: int, store: str, out: str, job: dict) -> None:
+    """One rank of phase 19 (a process of ``torch.multiprocessing.spawn``):
+    gloo with a ``file://`` store, its tensors on the job's device."""
+    import torch.distributed as dist
+
+    from palace_tpu_torch.parallel import distributed
+
+    if job["setup"] is not None:
+        job["setup"]()
+    distributed.initialize(f"file://{store}", world, rank, backend="gloo", device=job["device"])
+    try:
+        result = _mesh_rank_work(rank, job, Path(out))
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, Path(out) / f"rank{rank}.pt")
+
+
+def _mesh_rank_work(rank: int, job: dict, out: Path) -> dict:
+    """Each layout of ``job["model_parallel"]``: the scorer in float32 and
+    bfloat16 (launch counters reset just before and read just after) against
+    the one-rank probabilities, contigs/s and the collectives' ms a batch;
+    one training step against the one-rank step taken here first; under
+    (1, ranks) a checkpoint saved and restored on one rank."""
+    import gc as gcmod
+
+    import torch.distributed as dist
+
+    from palace_tpu_torch.models.checkpoint import (gather_train_state, restore_train_state,
+                                                    save_train_state)
+    from palace_tpu_torch.models.scoring import score_sequences
+    from palace_tpu_torch.models.train import adam_moments, init_train_state
+    from palace_tpu_torch.ops import kernels
+    from palace_tpu_torch.parallel import collectives, make_mesh
+
+    cfg, cuda = job["cfg"], job["device"] == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    world = mesh_world(job, dev)
+    names = [n for n, _ in world["contigs"]]
+    n_batches = -(-len(names) // job["batch"])
+    ref = one_rank_reference(world, job, dev)
+    gcmod.collect()
+    result = {"rank": rank, "layouts": {}}
+    for mp in job["model_parallel"]:
+        mesh = make_mesh(model_parallel=mp, device=job["device"])
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        rec: dict = dict(coords=mesh.coords)
+        for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+            kernels.reset_launches()
+            got = score_sequences(world["params"], world["contigs"], cfg, job["batch"],
+                                  dtype=dtype, mesh=mesh)
+            sync()
+            probs = np.array([p for _, p in got])
+            rec[name] = dict(launches=dict(kernels.LAUNCHES), in_order=[n for n, _ in got] == names,
+                             err=float(np.abs(probs - job["ref_probs"][name]).max()))
+        sync()
+        t0 = time.perf_counter()
+        score_sequences(world["params"], world["contigs"], cfg, job["batch"],
+                        dtype=torch.bfloat16, mesh=mesh)
+        sync()
+        rec["contigs_per_s"] = len(names) / (time.perf_counter() - t0)
+        collectives.TIMING.reset()
+        collectives.TIMING.enabled = True
+        try:
+            score_sequences(world["params"], world["contigs"], cfg, job["batch"],
+                            dtype=torch.bfloat16, mesh=mesh)
+        finally:
+            collectives.TIMING.enabled = False
+        rec["collective_ms_per_batch"] = collectives.TIMING.seconds * 1e3 / n_batches
+        rec["collective_calls"] = collectives.TIMING.calls
+        loss, state = mesh_step(world, job, mesh=mesh)
+        rec.update(loss=loss, ref_loss=ref["loss"], ref_err64=ref["err64"],
+                   split=shard_diffs(state, ref), specs={n: state.specs[n] for n in MESH_HELD})
+        if mesh.mp == dist.get_world_size():
+            save_train_state(out / "ckpt", state)
+            whole = gather_train_state(state)
+            if rank == 0:
+                template = init_train_state({n: torch.zeros_like(t)
+                                             for n, t in world["params"].items()},
+                                            cfg, job["lr"], device=dev)
+                back = restore_train_state(out / "ckpt", template)
+                mu, nu, count = adam_moments(back)
+                rec["checkpoint_equal"] = (
+                    back.step == whole["step"] and count == whole["adam_step"]
+                    and all(torch.equal(p, whole["params"][n])
+                            and torch.equal(mu[n], whole["exp_avg"][n])
+                            and torch.equal(nu[n], whole["exp_avg_sq"][n])
+                            for n, p in back.model.params().items()))
+                del template, back
+            del whole
+            dist.barrier()
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+        del state
+        gcmod.collect()
+        result["layouts"][(mesh.dp, mesh.mp)] = rec
+    return result
+
+
+def spawn_ranks(fn, world: int, job: dict, out: Path, timeout_s: float) -> list:
+    """``world`` processes of ``fn(rank, world, store, out, job)`` through
+    ``torch.multiprocessing.spawn`` with a ``file://`` store in ``out``; each
+    one's ``rank<r>.pt``.  A rank that raises ends the others; past
+    ``timeout_s`` every rank is ended and this raises."""
+    import torch.multiprocessing as mp
+
+    out.mkdir(parents=True, exist_ok=True)
+    ctx = mp.spawn(fn, args=(world, str(out / "store"), str(out), job), nprocs=world, join=False)
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks still running after {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=30)
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
 class Smoke:
@@ -2352,6 +2622,134 @@ class Smoke:
                                           kernel_ms=kernel_ms,
                                           contigs_per_s=TRAIN_BATCH / ms * 1e3)
 
+    # -- phases 18-19: the GCN across devices ------------------------------
+    def mesh_one_rank(self, tmp: Path) -> dict:
+        """Phase 18: a one-rank process group (NCCL on a card, gloo on the
+        CPU) and its (1, 1) mesh: ``score_sequences(mesh=...)`` on the mesh
+        world in float32 and bfloat16 (the launch counters reset just before
+        and read just after) against the same call without a mesh, and one
+        ``train_step`` against the same step without one.  Returns the
+        probabilities without a mesh, which phase 19 holds its ranks to."""
+        import torch.distributed as dist
+
+        from palace_tpu_torch.models.scoring import score_sequences
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.parallel import distributed, make_mesh
+
+        job, dev, cuda = mesh_job(self.dev.type), self.dev, self.dev.type == "cuda"
+        world = mesh_world(job, dev)
+        n_batches = -(-len(world["contigs"]) // BATCH)
+        distributed.initialize(f"file://{tmp / 'one_rank_store'}", 1, 0, device=dev.type)
+        try:
+            mesh = make_mesh(device=dev.type)
+            say(f"  one rank, backend {dist.get_backend()}, (data, model) = ({mesh.dp}, "
+                f"{mesh.mp}) on {mesh.device}; {len(world['contigs'])} contigs of "
+                f"{CONTIG_LEN} bp (GC spread), batch {BATCH}")
+            refs = {}
+            for name, dtype, atol in (("float32", None, PROB_ATOL),
+                                      ("bfloat16", torch.bfloat16, PROB_ATOL_BF16)):
+                want = np.array([p for _, p in score_sequences(
+                    world["params"], world["contigs"], job["cfg"], BATCH, dtype=dtype,
+                    device=dev)])
+                kernels.reset_launches()
+                got = np.array([p for _, p in score_sequences(
+                    world["params"], world["contigs"], job["cfg"], BATCH, dtype=dtype,
+                    mesh=mesh)])
+                if cuda:
+                    torch.cuda.synchronize()
+                launches = dict(kernels.LAUNCHES)
+                err = float(np.abs(got - want).max())
+                self.check(err <= atol and np.ptp(want) > 0.05,
+                           f"one rank, {name}: score_sequences(mesh=...) against no mesh, max "
+                           f"|dp| {err:.3g} <= {atol}, probabilities spread {np.ptp(want):.3f}")
+                self._check_scoring_launches(launches, n_batches, f"one rank, {name}")
+                refs[name] = want
+            ref = one_rank_reference(world, job, dev)
+            loss, state = mesh_step(world, job, mesh=mesh)
+            self._check_step("one rank", loss, ref["loss"], ref["err64"],
+                             shard_diffs(state, ref), job["lr"])
+            del state, ref
+        finally:
+            dist.destroy_process_group()
+        return refs
+
+    def _check_scoring_launches(self, launches: dict, n_batches: int, what: str) -> None:
+        want = {"transition_counts": n_batches, "sage_rounds": n_batches,
+                "conv_head": 3 * n_batches}
+        self.check(all(launches[k] == n for k, n in want.items()),
+                   f"{what}: launched K1, K2, K3 {want} a scoring (got "
+                   f"{ {k: launches[k] for k in want} })")
+
+    def _check_step(self, what: str, loss: float, ref_loss: float, ref_err64: float,
+                    split: dict, lr: float) -> None:
+        """A sharded step against the one-rank step: the loss within
+        ``MESH_LOSS_RTOL``; the split parameters' gradients as exact as the
+        one-rank step's, from the same float64 step (at most
+        ``GRAD_ERR_RATIO`` times its error, check a's criterion: float32 at
+        this width lies ~1e-3 from float64 in either package, so two float32
+        routes that add in another order can lie as far apart); the updated
+        shards within ``MESH_PARAM_ATOL`` but for ``MESH_PARAM_SHARE`` of the
+        elements, each within 2·lr (Adam moves an element ±lr whatever the
+        size of its gradient)."""
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        self.check(rel <= MESH_LOSS_RTOL, f"{what}: train_step loss {loss:.7f} against the "
+                                          f"one-rank {ref_loss:.7f}, {rel:.3g} relative <= "
+                                          f"{MESH_LOSS_RTOL}")
+        worst = max(d["err64"] for d in split.values())
+        self.check(worst <= GRAD_ERR_RATIO * ref_err64,
+                   f"{what}: the split parameters' gradients {worst:.3g} of their largest "
+                   f"magnitude from the float64 step, the one-rank step's {ref_err64:.3g} "
+                   f"(<= {GRAD_ERR_RATIO} x)")
+        for name, d in split.items():
+            self.check(d["share"] <= MESH_PARAM_SHARE
+                       and d["param_diff"] <= 2 * lr + MESH_PARAM_ATOL,
+                       f"{what}: {name} shard {d['shape']}: gradient {d['grad_err']:.3g} of its "
+                       f"largest magnitude from the one-rank step's; updated, {d['share']:.3g} "
+                       f"of the elements past {MESH_PARAM_ATOL} (<= {MESH_PARAM_SHARE}), the "
+                       f"largest {d['param_diff']:.3g} (<= 2·lr)")
+
+    def mesh_two_ranks(self, refs: dict, tmp: Path) -> None:
+        """Phase 19: ``MESH_RANKS`` processes on the one card under gloo
+        with its tensors on the card (NCCL will not put two ranks on one
+        card), each layout of ``MESH_MODEL_PARALLEL``: the scorer against
+        phase 18's one-rank probabilities, K1-K3 launched on every rank,
+        one ``train_step`` against the one-rank step, and under (1, ranks)
+        a checkpoint restored on one rank equal to the gathered state.  Its
+        contigs/s and memory are of processes that share one card: not
+        scaling."""
+        job = dict(mesh_job(self.dev.type), ref_probs=refs)
+        if self.dev.type == "cuda":
+            torch.cuda.empty_cache()
+        ranks = spawn_ranks(mesh_rank, MESH_RANKS, job, tmp / "ranks", MESH_TIMEOUT_S)
+        n_batches = -(-job["n_contigs"] // job["batch"])
+        self.records["mesh"] = {}
+        for layout in ranks[0]["layouts"]:
+            recs = [r["layouts"][layout] for r in ranks]
+            what = f"(data, model) = {layout}"
+            for r, rec in enumerate(recs):
+                for name, atol in (("float32", PROB_ATOL), ("bfloat16", PROB_ATOL_BF16)):
+                    self.check(rec[name]["err"] <= atol and rec[name]["in_order"],
+                               f"{what}, rank {r} {rec['coords']}, {name}: every contig in "
+                               f"input order, max |dp| {rec[name]['err']:.3g} from one rank "
+                               f"<= {atol}")
+                    self._check_scoring_launches(rec[name]["launches"], n_batches,
+                                                 f"{what}, rank {r}, {name}")
+                say(f"  {what}, rank {r}: launches (bf16) "
+                    f"{ {k: rec['bfloat16']['launches'][k] for k in SCORING_KERNELS} }")
+                self._check_step(f"{what}, rank {r}", rec["loss"], rec["ref_loss"],
+                                 rec["ref_err64"], rec["split"], job["lr"])
+            if "checkpoint_equal" in recs[0]:
+                self.check(recs[0]["checkpoint_equal"],
+                           f"{what}: the checkpoint rank 0 wrote, restored on one rank, equals "
+                           f"the gathered state (parameters, Adam's moments and steps)")
+            say(f"  {what} ({MESH_RANKS} processes sharing one card, not scaling): bf16 "
+                + ", ".join(f"rank {r} {rec['contigs_per_s']:.1f} contigs/s, peak "
+                            f"{rec['peak_bytes'] / 2**30:.3f} GiB, collectives "
+                            f"{rec['collective_ms_per_batch']:.3f} ms a batch "
+                            f"({rec['collective_calls']} calls)"
+                            for r, rec in enumerate(recs)))
+            self.records["mesh"][layout] = recs
+
     def eref_against_cpu(self, tmp: Path):
         """``run_search`` on a small world (k = 20) on the card and on the
         CPU's plain path: byte-identical ``ref_names.txt``."""
@@ -2410,6 +2808,22 @@ def run_train_phases(smoke: Smoke) -> None:
                             smoke.trained_through_kernels, world, state)
                 smoke.phase("where a training step's time goes", smoke.train_numbers, world,
                             state)
+
+
+def run_mesh_phases(smoke: Smoke) -> None:
+    """Phases 18-19, the GCN across devices, after the card is freed of the
+    earlier phases' models; stores and checkpoints in a temporary
+    directory."""
+    import gc
+
+    gc.collect()
+    if smoke.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = smoke.phase("the GCN across devices: one rank", smoke.mesh_one_rank, Path(tmp))
+        if refs:
+            smoke.phase("the GCN across devices: two ranks on one card", smoke.mesh_two_ranks,
+                        refs, Path(tmp))
 
 
 def run_phases(smoke: Smoke) -> None:
@@ -2485,6 +2899,7 @@ def main() -> int:
         run_graph_phases(smoke)
         run_pipeline_phases(smoke)
         run_train_phases(smoke)
+        run_mesh_phases(smoke)
     if smoke.failures:
         say("FAILED: " + "; ".join(smoke.failures))
         return 1

@@ -38,6 +38,8 @@ from torch import nn
 from torch.profiler import record_function
 
 from palace_tpu_torch.ops import kernels
+from palace_tpu_torch.parallel import collectives
+from palace_tpu_torch.parallel.mesh import Mesh, data_sharding
 
 Params = Dict[str, torch.Tensor]
 
@@ -208,21 +210,29 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """JAX ``_dropout``: keep each element with probability ``1 - rate`` and
     scale what is kept by ``1 / (1 - rate)``; the identity when
     ``generator`` is None or ``rate <= 0``.  The mask is drawn from
     ``generator``, which must lie on ``x``'s device (``F.dropout`` would
-    draw from the global generator)."""
+    draw from the global generator).  Under a ``mesh`` ``x`` is this rank's
+    data block of the batch: the mask is drawn for the whole global batch
+    and this rank keeps its block, so every rank's generator stays in step
+    and the masks are those of one device."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if mesh is None else (x.shape[0] * mesh.dp, *x.shape[1:])
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if mesh is not None:
+        mask = data_sharding(mask, mesh)
     return torch.where(mask, x / keep, 0.0)
 
 
 def _sage_layers(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
-                 cfg: GCNConfig, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 cfg: GCNConfig, generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The SAGE rounds as plain tensor code, at any depth: the eval path for
     depths other than 2, and the training path, which drops ``x_p`` and
     then ``x_f`` after each round's relu (JAX's keys 2i and 2i+1), before
@@ -236,12 +246,12 @@ def _sage_layers(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
         root = x_p @ params[f"convs_1.{i}.lin_r.w"]
         x_p = torch.relu(lifted[:, :, None, :] + root.reshape(B, f, pn // f, -1)
                          ).reshape(B, pn, -1)
-        x_p = dropout(x_p, cfg.drop_rate, generator)
+        x_p = dropout(x_p, cfg.drop_rate, generator, mesh)
         agg_f = x_p.reshape(B, f, f, -1).mean(dim=1)  # mean over {i : i%64 == j}
         x_f = torch.relu(agg_f @ params[f"convs_2.{i}.lin_l.w"]
                          + params[f"convs_2.{i}.lin_l.b"]
                          + x_f @ params[f"convs_2.{i}.lin_r.w"])
-        x_f = dropout(x_f, cfg.drop_rate, generator)
+        x_f = dropout(x_f, cfg.drop_rate, generator, mesh)
         if i < cfg.num_layers - 1:
             x_p = _layer_norm(x_p, params["ln.scale"], params["ln.bias"])
             x_f = _layer_norm(x_f, params["ln.scale"], params["ln.bias"])
@@ -249,19 +259,41 @@ def _sage_layers(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
 
 
 def lift_inputs(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
-                cfg: GCNConfig = DEFAULT_CONFIG) -> Tuple[torch.Tensor, torch.Tensor]:
+                cfg: GCNConfig = DEFAULT_CONFIG, mesh: Optional[Mesh] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dense node lifts (phage_scoring.py:93-99): (B,4096,3), (B,64,1)
-    → the SAGE rounds' inputs (B,4096,3), (B,64,3)."""
+    → the SAGE rounds' inputs (B,4096,3), (B,64,3).
+
+    Under a ``mesh`` whose model axis split ``pnode_d`` by output columns
+    (``parallel.mesh.shard_params_for_gcn``), each rank takes its columns
+    and the model group gathers them: the result is replicated."""
     B = x_p.shape[0]
     f, pn, d3 = cfg.fnode_num, cfg.pnode_num, cfg.hidden_dim
-    x_p = (x_p.reshape(B, pn * d3) @ params["pnode_d.w"] + params["pnode_d.b"]).reshape(B, pn, d3)
+    x = x_p.reshape(B, pn * d3)
+    w, b = params["pnode_d.w"], params["pnode_d.b"]
+    if w.shape[1] == pn * d3:
+        x_p = x @ w + b
+    else:  # column-split over the mesh's model axis
+        x_p = collectives.gather_columns(collectives.copy_to_model(x, mesh) @ w + b, mesh)
+    x_p = x_p.reshape(B, pn, d3)
     x_f = (x_f.reshape(B, f) @ params["fnode_d.w"] + params["fnode_d.b"]).reshape(B, f, d3)
     return x_p, x_f
 
 
+def _dense_1(params: Params, x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """``x @ d1.w + d1.b`` on the flat conv output; where the mesh's model
+    axis split ``d1.w`` by input rows, each rank multiplies its block of
+    ``x``'s columns and the model group sums the partial products."""
+    w = params["d1.w"]
+    if w.shape[0] == x.shape[1]:
+        return x @ w + params["d1.b"]
+    partial = collectives.scatter_to_model(x, mesh) @ w
+    return collectives.reduce_from_model(partial, mesh) + params["d1.b"]
+
+
 def forward(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
             cfg: GCNConfig = DEFAULT_CONFIG, return_logits: bool = False,
-            plain: bool = False) -> torch.Tensor:
+            plain: bool = False, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Eval forward: (B,4096,3), (B,64,1) → (B,2) softmax probabilities
     (or logits).
 
@@ -269,10 +301,16 @@ def forward(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
     and the conv head in another (``kernels.conv_head``); other depths take
     plain tensor code for the rounds.  ``plain=True`` runs the kernels'
     plain versions instead, on any device: the reference a card's run is
-    held to."""
+    held to.
+
+    Under a ``mesh`` the inputs are this rank's data block and ``params``
+    its shards (``parallel.mesh.shard_params_for_gcn``): ``pnode_d`` runs
+    column-split and ``d1`` row-split, with the model group's collectives
+    around them, and the kernels run unchanged on the replicated
+    activations between."""
     B = x_p.shape[0]
     pn, gd = cfg.pnode_num, cfg.gcn_dim
-    x_p, x_f = lift_inputs(params, x_p, x_f, cfg)
+    x_p, x_f = lift_inputs(params, x_p, x_f, cfg, mesh)
 
     # alternating bipartite SAGE rounds (phage_scoring.py:101-110)
     if cfg.num_layers == 2:
@@ -287,7 +325,7 @@ def forward(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
     conv = kernels.conv_head_plain if plain else kernels.conv_head
     x = conv(x, [params[f"conv{i}.w"] for i in (1, 2, 3)],
              [params[f"conv{i}.b"] for i in (1, 2, 3)])
-    x = torch.relu(x.reshape(B, cfg.flat_dim) @ params["d1.w"] + params["d1.b"])
+    x = torch.relu(_dense_1(params, x.reshape(B, cfg.flat_dim), mesh))
     logits = x @ params["d2.w"] + params["d2.b"]
     if return_logits:
         return logits
@@ -314,7 +352,7 @@ def full_float32() -> Iterator[None]:
 def train_forward(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
                   cfg: GCNConfig = DEFAULT_CONFIG,
                   generator: Optional[torch.Generator] = None,
-                  return_logits: bool = True) -> torch.Tensor:
+                  return_logits: bool = True, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The training forward: JAX ``forward(..., dropout_key=key)``, which
     runs through XLA and none of its kernels, in plain tensor ops at any
     depth, so autograd can take its gradient.  (B,4096,3), (B,64,1) →
@@ -328,20 +366,23 @@ def train_forward(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
     ``conv_general_dilated`` on this path; on a card, call it inside
     ``full_float32()``, backward included.  Its four parts run in the
     profiler ranges ``gcn.lift``, ``gcn.sage``, ``gcn.conv`` and ``gcn.fc``;
-    each backward node carries its forward op's ``sequence_nr``."""
+    each backward node carries its forward op's ``sequence_nr``.  Under a
+    ``mesh``, as ``forward``: the inputs are this rank's data block, the
+    parameters its shards, and each dropout mask this rank's block of the
+    global batch's (``dropout``)."""
     B = x_p.shape[0]
     with record_function("gcn.lift"):
-        x_p, x_f = lift_inputs(params, x_p, x_f, cfg)
+        x_p, x_f = lift_inputs(params, x_p, x_f, cfg, mesh)
     with record_function("gcn.sage"):
-        x_p = _sage_layers(params, x_p, x_f, cfg, generator)
+        x_p = _sage_layers(params, x_p, x_f, cfg, generator, mesh)
     with record_function("gcn.conv"):
         x = x_p.reshape(B, cfg.gcn_dim, cfg.pnode_num)  # the channel scramble, as ``forward``
         for i in (1, 2, 3):
             x = torch.relu(F.conv1d(x, params[f"conv{i}.w"], params[f"conv{i}.b"]))
             if i > 1:
-                x = dropout(x, cfg.drop_rate, generator)
+                x = dropout(x, cfg.drop_rate, generator, mesh)
     with record_function("gcn.fc"):
-        x = torch.relu(x.reshape(B, cfg.flat_dim) @ params["d1.w"] + params["d1.b"])
+        x = torch.relu(_dense_1(params, x.reshape(B, cfg.flat_dim), mesh))
         logits = x @ params["d2.w"] + params["d2.b"]
     return logits if return_logits else torch.softmax(logits, dim=1)
 
@@ -366,15 +407,18 @@ class GCNScorer(nn.Module):
         return {n: getattr(self, _buffer_name(n)) for n in self._names}
 
     def forward(self, x_p: torch.Tensor, x_f: torch.Tensor, return_logits: bool = False,
-                plain: bool = False) -> torch.Tensor:
-        return forward(self.params(), x_p, x_f, self.cfg, return_logits, plain)
+                plain: bool = False, mesh: Optional[Mesh] = None) -> torch.Tensor:
+        return forward(self.params(), x_p, x_f, self.cfg, return_logits, plain, mesh)
 
-    def score_features(self, features: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def score_features(self, features: torch.Tensor, plain: bool = False,
+                       mesh: Optional[Mesh] = None) -> torch.Tensor:
         """(B, 12288) features → P(phage), column 1 of the softmax
-        (phage_scoring.py:212).  Features are cast to the parameters' dtype."""
+        (phage_scoring.py:212).  Features are cast to the parameters' dtype.
+        Under a ``mesh`` the buffers are this rank's shards and ``features``
+        its data block."""
         dtype = getattr(self, _buffer_name("pnode_d.w")).dtype
         x_p, x_f = model_inputs_from_features(features.to(dtype), self.cfg)
-        return self.forward(x_p, x_f, plain=plain)[:, 1]
+        return self.forward(x_p, x_f, plain=plain, mesh=mesh)[:, 1]
 
 
 class TrainableGCN(nn.Module):
@@ -396,8 +440,9 @@ class TrainableGCN(nn.Module):
 
     def forward(self, x_p: torch.Tensor, x_f: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                return_logits: bool = False) -> torch.Tensor:
+                return_logits: bool = False, mesh: Optional[Mesh] = None) -> torch.Tensor:
         """``train_forward`` in full float32: with ``generator`` dropout is
         on; without it this is the eval forward in the same plain ops."""
         with full_float32():
-            return train_forward(self.params(), x_p, x_f, self.cfg, generator, return_logits)
+            return train_forward(self.params(), x_p, x_f, self.cfg, generator, return_logits,
+                                 mesh)

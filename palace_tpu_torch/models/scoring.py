@@ -26,6 +26,8 @@ from palace_tpu_torch.device import resolve_device
 from palace_tpu_torch.io.fasta import iter_fasta
 from palace_tpu_torch.models.gcn import DEFAULT_CONFIG, GCNConfig, GCNScorer
 from palace_tpu_torch.ops.encoder import byte_batch, features_from_bytes
+from palace_tpu_torch.parallel.collectives import gather_blocks
+from palace_tpu_torch.parallel.mesh import Mesh, shard_params_for_gcn
 from palace_tpu_torch.utils.logging import get_logger
 from palace_tpu_torch.utils.timers import GLOBAL_METRICS
 
@@ -46,7 +48,11 @@ def resolve_dtype(name: Optional[str]) -> Optional[torch.dtype]:
 
 
 def _scorer(params: Mapping[str, torch.Tensor], cfg: GCNConfig, dtype: Optional[torch.dtype],
-            device: torch.device) -> GCNScorer:
+            device: torch.device, mesh: Optional[Mesh] = None) -> GCNScorer:
+    """The scorer on ``device`` in ``dtype``; under a mesh whose model axis
+    is wider than one, holding this rank's shards of the parameters."""
+    if mesh is not None and mesh.mp > 1:
+        params, _ = shard_params_for_gcn(params, mesh)
     model = GCNScorer(params, cfg).to(device)
     return model.to(dtype) if dtype is not None else model
 
@@ -92,6 +98,7 @@ def score_sequences(
     dtype: Optional[torch.dtype] = None,
     fuse_k: int = 1,
     device: str | torch.device = "cuda",
+    mesh: Optional[Mesh] = None,
 ) -> List[Tuple[str, float]]:
     """Score (name, seq) pairs → (name, P(phage)), in input order.
 
@@ -100,23 +107,39 @@ def score_sequences(
     each feature batch.  ``fuse_k`` is accepted for compatibility with
     ``palace_tpu`` and does not change the result: batches are dispatched
     one by one.  Runs on the card unless ``device="cpu"``.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``) every rank is given the
+    whole input and runs on ``mesh.device`` (``device`` is not read):
+    ``batch_size`` rounds up to a multiple of ``mesh.dp``, each data rank
+    encodes and scores its contiguous block of every batch (K1 → lifts →
+    K2 → K3 → head), the parameters are sharded over the model axis when
+    it is wider than one, and the probabilities are gathered over the data
+    group, so every rank returns the same list.
     """
     if fuse_k < 1:
         raise ValueError("fuse_k must be >= 1")
     if batch_size < 1:
         raise ValueError("batch_size must be >= 1")
-    dev = resolve_device(device)
-    model = _scorer(params, cfg, dtype, dev)
+    if mesh is not None:
+        batch_size = -(-batch_size // mesh.dp) * mesh.dp
+        dev = mesh.device
+        lo, hi = (mesh.coords[0] * batch_size // mesh.dp,
+                  (mesh.coords[0] + 1) * batch_size // mesh.dp)
+    else:
+        dev = resolve_device(device)
+        lo, hi = 0, batch_size
+    model = _scorer(params, cfg, dtype, dev, mesh)
     t0 = time.perf_counter()
 
     def prepare(chunk):
         names = [name for name, _ in chunk]
         seqs = [seq for _, seq in chunk]
         seqs += ["A" * 4] * (batch_size - len(seqs))
-        return names, _host_batch(seqs, dev)
+        return names, _host_batch(seqs[lo:hi], dev)
 
     def dispatch(names, host):
-        return names, model.score_features(features_from_bytes(*_device_batch(host, dev)))
+        feats = features_from_bytes(*_device_batch(host, dev))
+        return names, model.score_features(feats, mesh=mesh)
 
     # a single background thread prepares batch i+1 while this thread ships
     # and dispatches batch i; the device runs behind both
@@ -130,8 +153,13 @@ def score_sequences(
             fut = nxt
         if fut is not None:
             pending.append(dispatch(*fut.result()))
-        probs = (torch.stack([p for _, p in pending]).float().cpu().numpy()
-                 if pending else np.zeros((0, batch_size), np.float32))
+        if pending:
+            probs = torch.stack([p for _, p in pending]).float()
+            if mesh is not None:
+                probs = gather_blocks(probs, mesh, "data", 1)
+            probs = probs.cpu().numpy()
+        else:
+            probs = np.zeros((0, batch_size), np.float32)
     results: List[Tuple[str, float]] = []
     for (names, _), row in zip(pending, probs):
         results.extend((nm, float(p)) for nm, p in zip(names, row[: len(names)]))
@@ -169,10 +197,14 @@ def score_fasta(
     dtype: Optional[torch.dtype] = None,
     fuse_k: int = 1,
     device: str | torch.device = "cuda",
+    mesh: Optional[Mesh] = None,
 ) -> int:
-    """Full stage: assembly FASTA → node_scores.out.  Returns #contigs."""
+    """Full stage: assembly FASTA → node_scores.out.  Returns #contigs.
+    Under a ``mesh`` (see ``score_sequences``) every rank reads the FASTA
+    and rank 0 alone writes the file."""
     scores = score_sequences(params, iter_fasta(fasta_path), cfg, batch_size,
-                             dtype=dtype, fuse_k=fuse_k, device=device)
-    write_scores(out_path, scores)
-    logger.info("Scored %d contigs → %s", len(scores), out_path)
+                             dtype=dtype, fuse_k=fuse_k, device=device, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        write_scores(out_path, scores)
+        logger.info("Scored %d contigs → %s", len(scores), out_path)
     return len(scores)

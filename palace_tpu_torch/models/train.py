@@ -10,13 +10,21 @@ cross-entropy on the two logits, dropout drawn from a seeded
 trained parameters go (``GCNScorer(state.model.params())``).
 
 ``train_step`` updates the state in place and returns it, where JAX
-returns a new one.  No ``mesh`` yet: one device.
+returns a new one.
+
+Under a ``mesh`` (``parallel.mesh.make_mesh``: one process a rank) the
+state holds this rank's shards of the parameters and of Adam's moments
+(``pnode_d`` by output columns, ``d1`` by input rows over the model axis,
+``parallel.mesh.shard_params_for_gcn``), each data rank takes its
+contiguous block of every batch, and the gradients are averaged over the
+data group before the same Adam runs on each rank's shards: JAX's dp×tp
+``train_step``, with the collectives ``parallel.collectives`` writes out.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +34,8 @@ from palace_tpu_torch.device import resolve_device
 from palace_tpu_torch.models.gcn import (DEFAULT_CONFIG, GCNConfig, Params, TrainableGCN,
                                          full_float32, init_params, model_inputs_from_features,
                                          params_from_jax, train_forward)
+from palace_tpu_torch.parallel.collectives import all_mean
+from palace_tpu_torch.parallel.mesh import Mesh, Spec, data_sharding, shard_params_for_gcn
 
 BETAS = (0.9, 0.999)  # optax.adam's b1, b2
 EPS = 1e-8            # optax.adam's eps, with eps_root 0
@@ -74,11 +84,14 @@ class Adam(torch.optim.Optimizer):
 
 @dataclass
 class TrainState:
-    """The model (its parameters), Adam and the count of steps taken."""
+    """The model (its parameters), Adam and the count of steps taken; under
+    a ``mesh``, this rank's shards and the spec of each parameter."""
 
     model: TrainableGCN
     optimizer: Adam
     step: int = 0
+    mesh: Optional[Mesh] = None
+    specs: Optional[Dict[str, Spec]] = None
 
     @property
     def device(self) -> torch.device:
@@ -92,42 +105,59 @@ def make_optimizer(model: TrainableGCN, learning_rate: float = 1e-4) -> Adam:
 
 
 def init_train_state(params: Mapping[str, torch.Tensor], cfg: GCNConfig = DEFAULT_CONFIG,
-                     learning_rate: float = 1e-4,
-                     device: str | torch.device = "cuda") -> TrainState:
+                     learning_rate: float = 1e-4, device: str | torch.device = "cuda",
+                     mesh: Optional[Mesh] = None) -> TrainState:
     """A state at step 0 holding a float32 copy of ``params`` on ``device``
-    (the card unless ``device="cpu"``)."""
-    dev = resolve_device(device)
+    (the card unless ``device="cpu"``); under a ``mesh``, this rank's
+    shards of the (whole) ``params`` on ``mesh.device``."""
+    specs = None
+    if mesh is not None:
+        params, specs = shard_params_for_gcn(params, mesh)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
     model = TrainableGCN({n: torch.as_tensor(t).to(dev, torch.float32)
                           for n, t in params.items()}, cfg)
-    return TrainState(model, make_optimizer(model, learning_rate), 0)
+    return TrainState(model, make_optimizer(model, learning_rate), 0, mesh, specs)
 
 
 def loss_fn(params: Params, x_p: torch.Tensor, x_f: torch.Tensor, labels: torch.Tensor,
-            cfg: GCNConfig = DEFAULT_CONFIG,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Mean softmax cross-entropy of the logits against integer labels."""
-    logits = train_forward(params, x_p, x_f, cfg, generator, return_logits=True)
+            cfg: GCNConfig = DEFAULT_CONFIG, generator: Optional[torch.Generator] = None,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Mean softmax cross-entropy of the logits against integer labels
+    (under a ``mesh``, over this rank's data block)."""
+    logits = train_forward(params, x_p, x_f, cfg, generator, return_logits=True, mesh=mesh)
     return F.cross_entropy(logits, labels.long())
 
 
 def value_and_grad(model: TrainableGCN, x_p: torch.Tensor, x_f: torch.Tensor,
                    labels: torch.Tensor, cfg: GCNConfig = DEFAULT_CONFIG,
-                   generator: Optional[torch.Generator] = None
-                   ) -> Tuple[torch.Tensor, Params]:
+                   generator: Optional[torch.Generator] = None,
+                   mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, Params]:
     """``jax.value_and_grad(loss_fn)``: the loss and its gradient for every
     parameter by JAX name, forward and backward in full float32.  The
     gradients are the parameters' ``.grad``, replaced at each call; a
     parameter the loss does not reach (the last round's f-node side) gets
-    zeros, as in JAX, so Adam steps every parameter as optax does."""
+    zeros, as in JAX, so Adam steps every parameter as optax does.
+
+    Under a ``mesh`` the batch is this rank's data block and the model its
+    shards: the loss and the gradients are averaged over the data group
+    (the global batch's mean, its blocks being of one size), so each rank
+    holds the gradient of its shards for the whole batch."""
     params = model.params()
     with full_float32():
         model.zero_grad(set_to_none=True)
-        loss = loss_fn(params, x_p, x_f, labels, cfg, generator)
+        loss = loss_fn(params, x_p, x_f, labels, cfg, generator, mesh)
         loss.backward()
     for p in params.values():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    return loss.detach(), {n: p.grad for n, p in params.items()}
+    loss = loss.detach()
+    if mesh is not None:
+        loss = loss.reshape(1)
+        all_mean([loss] + [p.grad for p in params.values()], mesh.data_group, mesh.dp)
+        loss = loss[0]
+    return loss, {n: p.grad for n, p in params.items()}
 
 
 def train_step(state: TrainState, x_p: torch.Tensor, x_f: torch.Tensor, labels: torch.Tensor,
@@ -135,8 +165,10 @@ def train_step(state: TrainState, x_p: torch.Tensor, x_f: torch.Tensor, labels: 
                learning_rate: float = 1e-4) -> Tuple[TrainState, torch.Tensor]:
     """One Adam step on one batch, on the state's device; the state is
     updated in place.  Returns it and the batch's loss, a tensor on the
-    device (nothing is read back)."""
-    loss, _ = value_and_grad(state.model, x_p, x_f, labels, cfg, generator)
+    device (nothing is read back).  Under the state's mesh the batch is
+    this rank's data block (``parallel.mesh.data_sharding``) and the loss
+    is the whole batch's."""
+    loss, _ = value_and_grad(state.model, x_p, x_f, labels, cfg, generator, state.mesh)
     for group in state.optimizer.param_groups:
         group["lr"] = learning_rate
     state.optimizer.step()
@@ -210,6 +242,7 @@ def fit(
     ckpt_every: int = 0,
     init_state: Optional[TrainState] = None,
     device: str | torch.device = "cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[TrainState, List[float]]:
     """Mini training loop over encoded features, as JAX ``fit``.
 
@@ -227,19 +260,30 @@ def fit(
     permutations start again from ``seed``.  ``init_state`` (on
     ``device``) is trained in place.  The losses are read back once an
     epoch.  Returns the final state and the per-epoch mean losses.
+
+    With a ``mesh`` every rank calls ``fit`` with the same arguments and
+    runs on ``mesh.device``: it draws the whole initial parameters and
+    keeps its shards (``init_state`` must be a state on that mesh), takes
+    its data block of each batch (``batch_size`` a multiple of
+    ``mesh.dp``), and draws the whole batch's dropout masks, so the
+    parameters, the permutations and the masks are those of one device.
+    Checkpoints hold the whole state, written by rank 0.
     """
     from palace_tpu_torch.models.checkpoint import restore_train_state, save_train_state
 
     n = int(features.shape[0])
     if n == 0:
         raise ValueError("no training examples")
-    dev = resolve_device(device)
+    if mesh is not None and batch_size % mesh.dp:
+        raise ValueError(f"batch_size {batch_size} does not split over {mesh.dp} data ranks")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     generator = torch.Generator(device=dev).manual_seed(seed)
     if init_state is None:
-        state = init_train_state(init_params(generator, cfg), cfg, learning_rate, dev)
+        state = init_train_state(init_params(generator, cfg), cfg, learning_rate, dev, mesh)
     else:
-        if init_state.device != dev:
-            raise ValueError(f"init_state lies on {init_state.device}, fit runs on {dev}")
+        if init_state.device != dev or init_state.mesh is not mesh:
+            raise ValueError(f"init_state lies on {init_state.device} (mesh "
+                             f"{init_state.mesh}), fit runs on {dev} (mesh {mesh})")
         state = init_state
     if ckpt_dir is not None:
         state = restore_train_state(ckpt_dir, state) or state
@@ -253,6 +297,8 @@ def fit(
         batches = torch.from_numpy(_epoch_batches(rng.permutation(n), batch_size)).to(dev)
         epoch_losses = []
         for idx in batches:
+            if mesh is not None:
+                idx = data_sharding(idx, mesh)
             x_p, x_f = model_inputs_from_features(feats[idx], cfg)
             state, loss = train_step(state, x_p, x_f, labs[idx], generator, cfg, learning_rate)
             epoch_losses.append(loss)

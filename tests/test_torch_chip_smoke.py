@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
+from _torch_jax_native import jax_native_dir  # noqa: F401  (JAX's native build, private)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -398,6 +399,90 @@ def test_train_phases_run_on_the_cpu_at_a_small_size(monkeypatch):
     assert one["grad_err_card"] == one["grad_err_cpu"] == one["grad_err_tf32"] < 1e-4
     assert smoke.records["train_scored"]["err"] <= chip_smoke.PROB_ATOL
     assert smoke.records["train_step"]["busy_ms"] == 0  # no device time on the CPU
+
+
+
+# -- phases 18-19: the GCN across devices, on the CPU under gloo ---------------------------
+
+SMALL_MESH = dict(fnode_num=8, gcn_dim=16, cnn_dim=8, fc_dim=10)
+
+
+def _small_mesh_rank():
+    """Run first by each rank of phase 19 on the CPU: K1's plain features
+    pooled to the small config's width, one thread."""
+    from palace_tpu_torch.models import scoring
+
+    encode, plain = scoring.features_from_bytes, chip_smoke.train_features
+    scoring.features_from_bytes = lambda *rows: _pooled(encode(*rows))
+    chip_smoke.train_features = lambda seqs, dev: _pooled(plain(seqs, dev))
+    torch.set_num_threads(1)
+
+
+def _wrong_shard_rank():
+    """``_small_mesh_rank``, and each shard split over the model axis taken
+    from the next model index's block."""
+    from palace_tpu_torch.parallel import mesh as pmesh
+
+    _small_mesh_rank()
+    right = pmesh.local_shard
+
+    def wrong(x, spec, mesh):
+        if mesh is not None and mesh.mp > 1 and "model" in spec:
+            i, j = mesh.coords
+            mesh = pmesh.Mesh(mesh.grid, int(mesh.grid[i, (j + 1) % mesh.mp]), mesh.device)
+        return right(x, spec, mesh)
+
+    pmesh.local_shard = wrong
+
+
+def _small_mesh_phases(monkeypatch, setup):
+    """Phases 18-19 at the small config (K1's features pooled, as for the
+    training phases), 8 contigs of 2 kb in batches of 4, two gloo ranks."""
+    from palace_tpu_torch.models import gcn, scoring
+
+    monkeypatch.setattr(chip_smoke, "mesh_cfg", lambda: gcn.GCNConfig(**SMALL_MESH))
+    plain = chip_smoke.train_features
+    monkeypatch.setattr(chip_smoke, "train_features", lambda seqs, dev: _pooled(plain(seqs, dev)))
+    encode = scoring.features_from_bytes
+    monkeypatch.setattr(scoring, "features_from_bytes", lambda *rows: _pooled(encode(*rows)))
+    for name, value in (("N_CONTIGS", 8), ("CONTIG_LEN", 2000), ("BATCH", 4), ("TRAIN_BATCH", 4),
+                        ("TRAIN_LR", 1e-3), ("MESH_SETUP", setup), ("MESH_TIMEOUT_S", 240)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    smoke = chip_smoke.Smoke("cpu")
+    chip_smoke.run_mesh_phases(smoke)
+    return smoke
+
+
+def test_mesh_phases_run_on_the_cpu_at_a_small_size(monkeypatch):
+    """Every check passes except that the scorer launched the card's
+    kernels: once a dtype on one rank, then on each rank of each layout."""
+    smoke = _small_mesh_phases(monkeypatch, _small_mesh_rank)
+    assert len(smoke.failures) == 2 + 2 * 2 * 2, smoke.failures
+    assert all("launched K1, K2, K3 {'transition_counts': 2, 'sage_rounds': 2, 'conv_head': 6}"
+               in f for f in smoke.failures)
+    mesh = smoke.records["mesh"]
+    assert list(mesh) == [(2, 1), (1, 2)]
+    for (dp, mp), recs in mesh.items():
+        assert [rec["coords"] for rec in recs] == [divmod(r, mp) for r in range(2)]
+        for rec in recs:
+            assert rec["float32"]["in_order"] and rec["float32"]["err"] <= 1e-6
+            assert rec["bfloat16"]["err"] <= chip_smoke.PROB_ATOL_BF16
+            assert rec["split"]["pnode_d.w"]["shape"] == (192, 192 // mp)
+            assert rec["split"]["d1.w"]["shape"] == (344 // mp, 10)
+            assert rec["specs"] == {"pnode_d.w": (None, "model"), "d1.w": ("model", None)}
+            assert rec["collective_calls"] > 0 and rec["contigs_per_s"] > 0
+            assert abs(rec["loss"] - rec["ref_loss"]) <= 1e-5 * rec["ref_loss"]
+    assert mesh[(1, 2)][0]["checkpoint_equal"] and "checkpoint_equal" not in mesh[(2, 1)][0]
+
+
+def test_mesh_phase_fails_on_a_wrong_shard(monkeypatch):
+    """Ranks that take the next model index's block of every model-split
+    parameter: the (1, 2) layout's scores and steps fail, (2, 1)'s pass."""
+    smoke = _small_mesh_phases(monkeypatch, _wrong_shard_rank)
+    wrong = [f for f in smoke.failures if "launched K1, K2, K3" not in f]
+    assert wrong and all(f.startswith("(data, model) = (1, 2)") for f in wrong), wrong
+    assert any("float32: every contig in input order, max |dp|" in f for f in wrong)
+    assert any("train_step loss" in f for f in wrong)
 
 
 def test_step_split_names_every_part_of_a_step():

@@ -21,6 +21,7 @@ from palace_tpu_torch.config import KmerParams
 from palace_tpu_torch.ops.count_table import CountTable
 from palace_tpu_torch.ops.kmer import kmer_hashes
 from palace_tpu_torch.search import eref, index, refs
+from _torch_jax_native import jax_native_dir  # noqa: F401  (JAX's native build, private)
 
 
 def _make_reads(seq, read_len, step):

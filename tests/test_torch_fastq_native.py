@@ -16,6 +16,7 @@ from palace_tpu.search import eref as jeref
 from palace_tpu_torch.io import fastq_native
 from palace_tpu_torch.native import _build
 from palace_tpu_torch.search import eref
+from _torch_jax_native import jax_native_dir  # noqa: F401  (JAX's native build, private)
 
 RNG = np.random.default_rng(7)
 

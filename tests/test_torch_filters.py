@@ -13,6 +13,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+from _torch_jax_native import jax_native_dir  # noqa: F401  (JAX's native build, private)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
 

@@ -31,6 +31,7 @@ from palace_tpu_torch.graph import filter as gfilter
 from palace_tpu_torch.io import bam, fastg
 from palace_tpu_torch.io.fasta import build_fai
 from palace_tpu_torch.io.graph_io import write_graph_file
+from _torch_jax_native import jax_native_dir  # noqa: F401  (JAX's native build, private)
 
 P, R, MR = jbam.FLAG_PAIRED, jbam.FLAG_REVERSE, jbam.FLAG_MREVERSE
 REFS2 = [("ctgA", 1000), ("ctgB", 800)]

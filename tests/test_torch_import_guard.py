@@ -59,7 +59,9 @@ def test_every_module_imports_without_jax():
             "palace_tpu_torch.filters.dedup", "palace_tpu_torch.filters.final_fa",
             "palace_tpu_torch.pipeline.driver", "palace_tpu_torch.pipeline.stages",
             "palace_tpu_torch.pipeline.external", "palace_tpu_torch.models.train",
-            "palace_tpu_torch.models.checkpoint"} <= set(modules)
+            "palace_tpu_torch.models.checkpoint", "palace_tpu_torch.parallel",
+            "palace_tpu_torch.parallel.mesh", "palace_tpu_torch.parallel.collectives",
+            "palace_tpu_torch.parallel.distributed"} <= set(modules)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

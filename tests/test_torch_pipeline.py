@@ -51,6 +51,7 @@ from palace_tpu_torch.pipeline import driver as tdriver
 from palace_tpu_torch.pipeline import external as texternal
 from palace_tpu_torch.pipeline import stages as tstages
 from palace_tpu_torch.utils import timers as ttimers
+from _torch_jax_native import jax_native_dir  # noqa: F401  (JAX's native build, private)
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "scripts"))

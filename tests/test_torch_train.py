@@ -329,9 +329,9 @@ def test_dropout_sites_in_jax_key_order(world, site, monkeypatch):
 
     calls = []
 
-    def port_dropout(x, rate, generator):
+    def port_dropout(x, rate, generator, mesh=None):
         calls.append(tuple(x.shape))
-        return real_t(x, 1.0 if len(calls) - 1 == site else 0.0, generator)
+        return real_t(x, 1.0 if len(calls) - 1 == site else 0.0, generator, mesh)
 
     monkeypatch.setattr(jgcn, "_dropout", jax_dropout)
     monkeypatch.setattr(tgcn, "dropout", port_dropout)
@@ -424,3 +424,82 @@ def test_checkpoint_reads_no_pickled_code(world, tmp_path):
     torch.save({"step": 1, "params": Boom()}, tmp_path / "1.pt")
     with pytest.raises(Exception, match="[Ww]eights only"):
         checkpoint.restore_train_state(tmp_path, _port_state(world["state0"]))
+
+
+# -- float32 against float64 at the published width --------------------------------------
+
+def _grad_errors(grads, ref):
+    """max |g - ref| / max |ref| of each tensor (chip_smoke.py's measure)."""
+    out = {}
+    for name, want in ref.items():
+        scale = np.abs(want).max()
+        d = np.abs(grads[name] - want).max()
+        out[name] = float(d / scale) if scale else (float("inf") if d else 0.0)
+    return out
+
+
+@pytest.mark.slow
+def test_full_width_float32_gradients_against_float64_in_both_packages():
+    """One step's gradients at ``GCNConfig()``'s width, dropout off, on the
+    batch of chip_smoke.py's check a (its training world: the first 64 of
+    the seeded split of 2,048 GC-spread 10 kb contigs, labelled by GC, from
+    ``init_params`` at the training seed, here on the CPU's generator),
+    through four routes: JAX in float32 and with ``jax_enable_x64`` in
+    float64, the port in float32 and in float64.
+
+    The two float64 routes are one function (1e-9 of each tensor's largest
+    magnitude).  JAX's float32 lies as far from float64 as the port's
+    (beyond 1e-4 at this width: the gradient that reaches ``pnode_d`` is
+    small against the sums it comes from), and the port's lies no farther
+    than twice JAX's (chip_smoke.py's ``GRAD_ERR_RATIO``).  ``pytest -s``
+    prints the four routes' distances."""
+    import chip_smoke
+
+    jcfg, tcfg = jgcn.GCNConfig(drop_rate=0.0), tgcn.GCNConfig(drop_rate=0.0)
+    contigs = chip_smoke.make_contigs(chip_smoke.TRAIN_CONTIGS, chip_smoke.CONTIG_LEN,
+                                      chip_smoke.TRAIN_SEED, gc_spread=True)
+    gc = np.array([(s.count("G") + s.count("C")) / len(s) for _, s in contigs])
+    labels = (gc > np.median(gc)).astype(np.int64)
+    perm = np.random.default_rng(chip_smoke.TRAIN_SEED).permutation(len(contigs))
+    idx = perm[chip_smoke.TRAIN_HELD_OUT:][:chip_smoke.TRAIN_BATCH]
+    feats = chip_smoke.train_features([contigs[i][1] for i in idx], torch.device("cpu")).numpy()
+    y = labels[idx]
+    params = {k: v.numpy() for k, v in tgcn.init_params(
+        torch.Generator().manual_seed(chip_smoke.TRAIN_SEED), tcfg).items()}
+    key = jax.random.PRNGKey(0)  # with a key JAX's forward takes the XLA path, as training does
+
+    def jax_route(dtype):
+        p = {k: jnp.asarray(v, dtype) for k, v in params.items()}
+        x_p, x_f = jgcn.model_inputs_from_features(jnp.asarray(feats, dtype), jcfg)
+        loss, g = jax.value_and_grad(jtrain.loss_fn)(p, x_p, x_f, jnp.asarray(y), jcfg, key)
+        assert g["pnode_d.w"].dtype == dtype
+        return float(loss), {k: np.asarray(v, np.float64) for k, v in g.items()}
+
+    def port_route(dtype):
+        model = tgcn.TrainableGCN(tgcn.params_from_jax(params), tcfg).to(dtype)
+        x_p, x_f = tgcn.model_inputs_from_features(torch.from_numpy(feats).to(dtype), tcfg)
+        loss, g = train.value_and_grad(model, x_p, x_f, torch.from_numpy(y), tcfg)
+        return float(loss), {k: v.double().numpy() for k, v in g.items()}
+
+    losses, grads = {}, {}
+    losses["port32"], grads["port32"] = port_route(torch.float32)
+    losses["port64"], grads["port64"] = port_route(torch.float64)
+    losses["jax32"], grads["jax32"] = jax_route(jnp.float32)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        losses["jax64"], grads["jax64"] = jax_route(jnp.float64)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+    errs = {(a, b): _grad_errors(grads[a], grads[b]) for a, b in (
+        ("jax32", "jax64"), ("port32", "port64"), ("port64", "jax64"), ("port32", "jax32"))}
+    print(f"\nlosses: {losses}")
+    for (a, b), e in errs.items():
+        worst = sorted(e.items(), key=lambda kv: -kv[1])[:4]
+        print(f"{a} from {b}: worst {max(e.values()):.4g}, pnode_d.w {e['pnode_d.w']:.4g}; "
+              + ", ".join(f"{n} {v:.3g}" for n, v in worst))
+    gap_jax, gap_port = max(errs["jax32", "jax64"].values()), max(errs["port32", "port64"].values())
+    assert max(errs["port64", "jax64"].values()) <= 1e-9
+    assert abs(losses["port64"] - losses["jax64"]) <= 1e-12
+    assert gap_jax > 1e-4
+    assert gap_port <= chip_smoke.GRAD_ERR_RATIO * gap_jax
