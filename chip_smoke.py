@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's two main paths once on one CUDA card,
 its host path from mapped reads to path FASTA, the whole pipeline
 that composes them, from one config file to the final phage FASTA, the
-scorer's training with checkpoint and resume, and the scorer and its
-training across devices.
+scorer's training with checkpoint and resume, and the scorer, its
+training, eref and the pipeline across devices.
 
     python3 chip_smoke.py
 
@@ -131,7 +131,26 @@ Phases, each of which must pass:
    the gathered state; each layout's contigs/s, each rank's peak device
    memory and the collectives' ms a batch, of processes sharing one card
    (not scaling);
-20. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
+20. eref across devices, one rank: a one-rank process group (NCCL on the
+   card) and its mesh on phase 6's world, the reads split into two halves
+   (``split_reads``); ``run_search(mesh=...)`` with the launch counters
+   reset just before and read just after: phase 7's 67 hits and
+   ``ref_names.txt``, ``scan_hits`` and ``window_hits`` once a chunk,
+   ``scan_chunk`` never; then both against their plain versions on the
+   chunks of phase 8, ``window_hits`` against ``scan_chunk``, each timed
+   beside ``scan_chunk`` with its bound;
+21. eref across devices, two ranks sharing the card under gloo at
+   (data, model) = (2, 1): ``run_search(mesh=...)`` and
+   ``run_search_distributed`` on every rank, phase 7's hits, each rank's
+   shard equal to its block of a one-device table, ``ref_names.txt``
+   written by rank 0 alone, ``scan_hits``/``window_hits`` launched; Phase A
+   and B seconds, the collectives' ms and bytes, each rank's peak memory;
+22. the pipeline across devices: ``run_pipeline(cfg, mesh=...)`` on a copy
+   of phase 14's world, two ranks sharing the card under gloo at (2, 1):
+   the final FASTA byte-identical to phase 15's, ``node_scores.out`` within
+   2e-4 of it, K1-K3 and ``scan_hits``/``window_hits`` launched on both
+   ranks, each step's seconds;
+23. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -194,6 +213,10 @@ KERNELS = {  # name → (CUDA source, the Pallas call it replaces)
                      "palace_tpu/ops/pallas_kernels.py:252"),
     "scan_chunk": ("palace_tpu_torch/csrc/good_windows.cu",
                    "palace_tpu/ops/pallas_kernels.py:252"),
+    "scan_hits": ("palace_tpu_torch/csrc/good_windows.cu",
+                  "palace_tpu/ops/pallas_kernels.py:252"),
+    "window_hits": ("palace_tpu_torch/csrc/good_windows.cu",
+                    "palace_tpu/ops/pallas_kernels.py:252"),
 }
 SCORING_KERNELS = ("transition_counts", "sage_rounds", "conv_head")
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.float16: "float16"}
@@ -1129,8 +1152,10 @@ def shard_diffs(state, ref: dict) -> dict:
 
 
 def mesh_rank(rank: int, world: int, store: str, out: str, job: dict) -> None:
-    """One rank of phase 19 (a process of ``torch.multiprocessing.spawn``):
-    gloo with a ``file://`` store, its tensors on the job's device."""
+    """One rank of phases 19, 21 and 22 (a process of
+    ``torch.multiprocessing.spawn``): gloo with a ``file://`` store, its
+    tensors on the job's device, its work ``job["work"]`` (phase 19's by
+    default)."""
     import torch.distributed as dist
 
     from palace_tpu_torch.parallel import distributed
@@ -1139,7 +1164,7 @@ def mesh_rank(rank: int, world: int, store: str, out: str, job: dict) -> None:
         job["setup"]()
     distributed.initialize(f"file://{store}", world, rank, backend="gloo", device=job["device"])
     try:
-        result = _mesh_rank_work(rank, job, Path(out))
+        result = job.get("work", _mesh_rank_work)(rank, job, Path(out))
     finally:
         dist.destroy_process_group()
     torch.save(result, Path(out) / f"rank{rank}.pt")
@@ -1252,6 +1277,149 @@ def spawn_ranks(fn, world: int, job: dict, out: Path, timeout_s: float) -> list:
                 p.terminate()
             p.join(timeout=30)
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+# -- phases 20-22: eref and the pipeline across devices -------------------------
+ACROSS_RANKS = 2   # two processes sharing the one card (phases 21-22)
+ACROSS_TIMEOUT_S = 600
+#: scan_hits' integer operations a position (hashing, about 40); window_hits' (10)
+SCAN_HITS_OPS, WINDOW_HITS_OPS = 40, 10
+
+
+def split_reads(fq: Path) -> list:
+    """The records of phase 7's reads.fastq alternately into r1.fastq and
+    r2.fastq beside it (once): the pair ``run_search`` reads.  Their union
+    is phase 7's reads, so their table is phase 7's and so are the hits;
+    two copies of reads.fastq would count every read twice."""
+    pair = [fq.with_name("r1.fastq"), fq.with_name("r2.fastq")]
+    if not pair[1].exists():
+        lines = fq.read_text().splitlines(keepends=True)
+        recs = ["".join(lines[i:i + 4]) for i in range(0, len(lines), 4)]
+        for path, part in zip(pair, (recs[0::2], recs[1::2])):
+            path.write_text("".join(part))
+    return pair
+
+
+def scan_hits_bound(positions: int, rows: int, reads: int) -> tuple:
+    """scan_hits' bound: 0.375 B a position in (codes and invalid bits),
+    24 B of offsets a row and 0.375 B a position of hit bits out, plus the
+    floor of its in-range table reads, a 32-byte sector each (no cache holds
+    a 2^k-byte table); ``SCAN_HITS_OPS`` a position at the float32 rate,
+    the data sheet having no int32 rate."""
+    return bound(2 * (positions * 3 // 8) + 24 * rows + 32 * reads,
+                 SCAN_HITS_OPS * positions, torch.float32)
+
+
+def window_hits_bound(positions: int) -> tuple:
+    """window_hits' bound: 0.375 B a position in, 0.125 B of flags out."""
+    return bound(positions * 3 // 8 + positions // 8, WINDOW_HITS_OPS * positions,
+                 torch.float32)
+
+
+def copy_pipeline_world(world: dict, src: Path, dst: Path) -> Path:
+    """Phase 14's world copied to ``dst`` before phase 15 writes into it,
+    its config pointed at the copy; returns the copy's config."""
+    import shutil
+
+    shutil.copytree(src, dst)
+    cfg = dst / Path(world["config"]).relative_to(src)
+    cfg.write_text(cfg.read_text().replace(str(src), str(dst)))
+    return cfg
+
+
+def _eref_rank_work(rank: int, job: dict, out: Path) -> dict:
+    """Phase 21 on one rank: ``run_search(mesh=...)`` and
+    ``run_search_distributed`` at (2, 1), each with the launch counters and
+    ``collectives.TIMING`` reset just before and read just after (TIMING
+    synchronizes around each collective), its hits, Phase A and B seconds,
+    the collectives' seconds and bytes, and the peak device memory; then
+    each run's shard against its block of a one-device table of the same
+    reads."""
+    import torch.distributed as dist
+
+    from palace_tpu_torch.config import KmerParams
+    from palace_tpu_torch.ops import kernels
+    from palace_tpu_torch.parallel import collectives, make_mesh
+    from palace_tpu_torch.search import eref
+    from palace_tpu_torch.search.index import load_index
+    from palace_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    cuda = job["device"] == "cuda"
+    index, params = load_index(job["db"], job["k"]), KmerParams(k=job["k"])
+    mesh = make_mesh(device=job["device"])
+    fqs = job["fastqs"]
+    runs = {"run_search": lambda path: eref.run_search(*fqs, index, params, path, mesh=mesh),
+            "run_search_distributed":
+                lambda path: eref.run_search_distributed(fqs, index, params, path, mesh)}
+    tables, real = [], eref.search_references
+
+    def spy(table, *args):  # the sharded table each run counted
+        tables.append(table)
+        return real(table, *args)
+
+    result = {"rank": rank, "index": mesh.index, "coords": mesh.coords, "runs": {}}
+    shards = {}  # each run's shard, on the host so that the next run's peak is its own
+    eref.search_references = spy
+    try:
+        for name, run in runs.items():
+            GLOBAL_METRICS.stages.clear()
+            kernels.reset_launches()
+            collectives.TIMING.reset()
+            collectives.TIMING.enabled = True
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            t0 = time.perf_counter()
+            hits = run(out / f"ref_names.{name}.rank{rank}.txt")
+            if cuda:
+                torch.cuda.synchronize()
+            collectives.TIMING.enabled = False
+            st = GLOBAL_METRICS.stages
+            result["runs"][name] = dict(
+                hits=[h.line() for h in hits], wall_s=time.perf_counter() - t0,
+                launches=dict(kernels.LAUNCHES), phase_a_s=st["eref.count_reads"].seconds,
+                phase_b_s=st["eref.scan_refs"].seconds,
+                collectives={p: (st[f"{s}.collectives"].seconds, st[f"{s}.collectives"].items)
+                             for p, s in (("A", "eref.count_reads"), ("B", "eref.scan_refs"))},
+                peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0)
+            shards[name] = (tables[-1].lo, tables.pop().table.cpu())
+    finally:
+        eref.search_references = real
+        collectives.TIMING.enabled = False
+    whole = eref.count_reads_into_table(fqs, index, params, device=mesh.device).table
+    for name, (lo, shard) in shards.items():
+        block = whole[lo:lo + shard.numel()].cpu()
+        result["runs"][name]["shard"] = (
+            shard.numel(), bool(torch.equal(shard[:block.numel()], block)
+                                and not shard[block.numel():].any()))
+    return result
+
+
+def _pipeline_rank_work(rank: int, job: dict, out: Path) -> dict:
+    """Phase 22 on one rank: ``run_pipeline(cfg, mesh=...)`` at (2, 1) with
+    the launch counters reset just before and read just after, its seconds
+    by step and its peak device memory."""
+    from palace_tpu_torch.config import PalaceConfig
+    from palace_tpu_torch.ops import kernels
+    from palace_tpu_torch.parallel import make_mesh
+    from palace_tpu_torch.pipeline.driver import run_pipeline
+    from palace_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    cuda = job["device"] == "cuda"
+    mesh = make_mesh(device=job["device"])
+    GLOBAL_METRICS.stages.clear()
+    kernels.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = run_pipeline(PalaceConfig.from_file(job["config"]), mesh=mesh)
+    if cuda:
+        torch.cuda.synchronize()
+    return dict(rank=rank, final=str(final), wall_s=time.perf_counter() - t0,
+                launches=dict(kernels.LAUNCHES),
+                seconds={k: v.seconds for k, v in GLOBAL_METRICS.stages.items()},
+                peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0)
 
 
 class Smoke:
@@ -1705,12 +1873,12 @@ class Smoke:
         from palace_tpu_torch.config import KmerParams
         from palace_tpu_torch.ops import kernels
         from palace_tpu_torch.search.eref import (
+            READERS,
             count_reads_into_table,
             plan_chunks,
             search_references,
+            write_ref_names,
         )
-
-        from palace_tpu_torch.search.eref import READERS
 
         index, fq, n_planted = world
         params = KmerParams(k=EREF_K)
@@ -1752,10 +1920,12 @@ class Smoke:
         say(f"  scan_chunk's bound over this Phase B: {scanned} positions scanned (buckets and "
             f"pad rows included), {valid} k-mers of ACGT: {b_ms:.4f} ms ({by}); the floor of "
             f"its table reads, a 32-byte sector each: {gather_floor_ms(3 * valid):.4f} ms")
+        names = Path(fq).with_name("ref_names.one_device.txt")
+        write_ref_names(names, hits)
         self.records["eref"] = dict(phase_a_s=a_s, phase_b_s=b_s, peak_bytes=peak,
                                     phase_b_peak_bytes=peak_b, host_ms=parts,
                                     n_chunks=n_chunks, launches=launches, n_hits=len(hits),
-                                    readers=readers)
+                                    readers=readers, ref_names=names.read_bytes())
         self.check(launches["scan_chunk"] == n_chunks and n_chunks > 0,
                    f"eref main path launched scan_chunk once a chunk "
                    f"({launches['scan_chunk']} launches, {n_chunks} chunks)")
@@ -2339,7 +2509,8 @@ class Smoke:
             n_batches=n_batches, n_chunks=n_chunks, contigs_per_s=score["throughput"],
             score_s=score["seconds"],
             phase_a_s=count["seconds"], phase_b_s=scan["seconds"], rescore_err=err,
-            found=found, others=others)
+            found=found, others=others, final_bytes=final.read_bytes(),
+            scores=([n for n, _ in rows], probs))
 
     # -- phases 16-17: training -------------------------------------------
     def train_world(self) -> dict:
@@ -2772,6 +2943,262 @@ class Smoke:
                    f"on the card byte-identical to the CPU's")
 
 
+    # -- phases 20-22: eref and the pipeline across devices --------------------
+    def eref_mesh_one_rank(self, world, tmp: Path) -> None:
+        """Phase 20: a one-rank process group (NCCL on a card, gloo on the
+        CPU) and its mesh on phase 6's world: ``run_search(mesh=...)`` with
+        the launch counters reset just before and read just after, against
+        phase 7's hits and ``ref_names.txt``; then ``scan_hits`` and
+        ``window_hits`` against their plain versions on real chunks, timed
+        beside ``scan_chunk``.  Saves the index for phase 21's ranks."""
+        import torch.distributed as dist
+
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.parallel import distributed, make_mesh
+        from palace_tpu_torch.search.eref import (count_reads_into_table, plan_chunks,
+                                                  run_search)
+        from palace_tpu_torch.search.index import save_index
+
+        index, fq, _ = world
+        fqs, params = split_reads(Path(fq)), KmerParams(k=EREF_K)
+        save_index(Path(fq).with_name("db.fasta"), index)
+        cuda, n_chunks = self.dev.type == "cuda", len(plan_chunks(index))
+        out = tmp / "ref_names.one_rank.txt"
+        distributed.initialize(f"file://{tmp / 'eref_one_rank_store'}", 1, 0, device=self.dev.type)
+        try:
+            mesh = make_mesh(device=self.dev.type)
+            say(f"  one rank, backend {dist.get_backend()}, (data, model) = ({mesh.dp}, "
+                f"{mesh.mp}) on {mesh.device}; the reads of phase 7 as {fqs[0].name} + "
+                f"{fqs[1].name}")
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            hits = run_search(*fqs, index, params, out, mesh=mesh)
+            if cuda:
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+            say(f"  run_search(mesh=...): {secs:.3f} s, peak {peak / 2**30:.3f} GiB, "
+                f"launches {launches}")
+            self.check(len(hits) == EREF_JAX_HITS and out.read_bytes()
+                       == self.records["eref"]["ref_names"],
+                       f"one rank: {len(hits)} hits ({EREF_JAX_HITS} from the JAX package), "
+                       f"ref_names.txt byte-identical to phase 7's")
+            self.check(launches["scan_hits"] == launches["window_hits"] == n_chunks
+                       and launches["scan_chunk"] == 0,
+                       f"one rank: launched scan_hits and window_hits once a chunk and "
+                       f"scan_chunk never ({launches['scan_hits']}, {launches['window_hits']}, "
+                       f"{launches['scan_chunk']}; {n_chunks} chunks)")
+            self.records["eref_mesh"] = dict(seconds=secs, launches=launches, peak_bytes=peak)
+            table = count_reads_into_table(fqs, index, params, mesh=mesh)
+            self.sharded_kernels(index, table)
+        finally:
+            dist.destroy_process_group()
+
+    def sharded_kernels(self, index, table) -> None:
+        """``scan_hits`` and ``window_hits`` against their plain versions on
+        the first chunk of each length bucket and one with pad rows, and
+        ``window_hits`` of one rank's planes against ``scan_chunk`` on the
+        same table; the device time of each kernel on those chunks
+        (torch.profiler, and CUDA events around the wrappers, whose offsets
+        check synchronizes), its bound and its plain version's time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.ops.window import window_thresholds
+        from palace_tpu_torch.search.eref import DeviceDB, chunk_offsets, plan_chunks
+
+        params = KmerParams(k=EREF_K)
+        win = (params.window, *window_thresholds(params.window, params.hit_ratio,
+                                                 params.perfect_hit_ratio))
+        db, picked = DeviceDB(index, self.dev), picked_chunks(plan_chunks(index))
+        scan = (index.perm, index.k)
+        calls = []
+        for target, refs, rows in picked:
+            offs = torch.from_numpy(chunk_offsets(index, refs, rows)).to(self.dev)
+            args = (db.packed, db.mask, offs, table.table, table.lo, *scan, target,
+                    params.least_depth)
+            planes = kernels.scan_hits(*args)
+            calls.append(dict(
+                target=target, refs=refs, rows=rows, offs=offs, planes=planes,
+                hits=lambda a=args: kernels.scan_hits(*a),
+                hits_plain=lambda a=args: kernels.scan_hits_plain(*a),
+                win=lambda p=planes: kernels.window_hits(p, *win),
+                win_plain=lambda p=planes: kernels.window_hits_plain(p, *win),
+                chunk=lambda o=offs, t=target: kernels.scan_chunk(
+                    db.packed, db.mask, o, table.table, *scan, t, *win, params.least_depth)))
+        err, tot = 0, {}
+        for c in calls:
+            want, flags = c["hits_plain"](), c["win"]()
+            same = (torch.equal(c["planes"], want), torch.equal(flags, c["win_plain"]()),
+                    torch.equal(flags, c["chunk"]()))
+            err = max(err, int((c["planes"].int() - want.int()).abs().max()))
+            self.check(all(same), f"scan_hits, window_hits equal their plain versions and "
+                                  f"window_hits the fused scan_chunk on a chunk of "
+                                  f"{len(c['refs'])} refs + {c['rows'] - len(c['refs'])} pad "
+                                  f"rows × {c['target']} positions: {same}")
+            h = kernels.scan_hashes_plain(db.packed, db.mask, c["offs"], *scan,
+                                          c["target"]) - table.lo
+            reads = int(((h >= 0) & (h < table.table.numel()) & (h + table.lo != 0)).sum())
+            del h, want
+            part = dict(positions=c["rows"] * c["target"], rows=c["rows"], reads=reads,
+                        **{f"{n}_ms": cuda_ms(c[n], 20) for n in ("hits", "win", "chunk")},
+                        **{f"{n}_ms": cuda_ms(c[n], 3) for n in ("hits_plain", "win_plain")})
+            say(f"    chunk {c['rows']:4d} × {c['target']:7d}: scan_hits {part['hits_ms']:.4f} "
+                f"ms (plain {part['hits_plain_ms']:.4f}), window_hits {part['win_ms']:.4f} ms "
+                f"(plain {part['win_plain_ms']:.4f}), scan_chunk {part['chunk_ms']:.4f} ms; "
+                f"{reads} in-range table reads")
+            for key, v in part.items():
+                tot[key] = tot.get(key, 0) + v
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        reps = 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for c in calls:
+                    c["hits"]()
+                    c["win"]()
+                    c["chunk"]()
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize()
+        kernel_ms = {n: sum(e.time_range.elapsed_us() for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA
+                            and f"{n}_kernel" in e.name) / 1e3 / reps
+                     for n in ("scan_hits", "window_hits", "scan_chunk")}
+        profiled = any(kernel_ms.values())
+        hb = scan_hits_bound(tot["positions"], tot["rows"], tot["reads"])
+        wb = window_hits_bound(tot["positions"])
+        say(f"  over {len(calls)} chunks, {tot['positions']} positions, {tot['reads']} in-range "
+            f"table reads: " + ("kernel time (profiler) " + ", ".join(
+                f"{n} {ms:.4f} ms" for n, ms in kernel_ms.items()) if profiled else
+                "kernel time not measured (the profiler saw no device events)")
+            + f"; CUDA events around the wrappers: scan_hits {tot['hits_ms']:.4f} ms, "
+            f"window_hits {tot['win_ms']:.4f} ms, scan_chunk {tot['chunk_ms']:.4f} ms; bounds: "
+            f"scan_hits {hb[0]:.4f} ms ({hb[1]}), window_hits {wb[0]:.4f} ms ({wb[1]}); plain: "
+            f"scan_hits {tot['hits_plain_ms']:.4f} ms, window_hits {tot['win_plain_ms']:.4f} ms")
+        for name, key, b in (("scan_hits", "hits", hb), ("window_hits", "win", wb)):
+            self.records[name] = dict(
+                dtype="packed phagedb + a table shard in, hit bit-planes out"
+                if name == "scan_hits" else "hit bit-planes in, uint8 flags out",
+                max_abs_err=float(err), ms=kernel_ms[name] if profiled else tot[f"{key}_ms"],
+                wrapper_ms=tot[f"{key}_ms"], plain_ms=tot[f"{key}_plain_ms"], bound=b,
+                library_ms=None, chunks=len(calls),
+                scan_chunk_ms=kernel_ms["scan_chunk"] if profiled else tot["chunk_ms"])
+
+    def eref_mesh_two_ranks(self, world, tmp: Path) -> None:
+        """Phase 21: ``ACROSS_RANKS`` processes on the one card under gloo with
+        their tensors on the card, at (2, 1): ``run_search(mesh=...)`` and
+        ``run_search_distributed`` on every rank, each rank's hits and its
+        shard held to phase 7's, ``ref_names.txt`` written by rank 0 alone,
+        ``scan_hits`` and ``window_hits`` launched once a chunk on every
+        rank; Phase A and B seconds, the collectives' ms and bytes and each
+        rank's peak memory, of processes sharing one card (not scaling)."""
+        from palace_tpu_torch.search.eref import plan_chunks
+
+        index, fq, _ = world
+        n_chunks, want = len(plan_chunks(index)), self.records["eref"]["ref_names"]
+        job = dict(work=_eref_rank_work, db=str(Path(fq).with_name("db.fasta")), k=EREF_K,
+                   fastqs=[str(f) for f in split_reads(Path(fq))], device=self.dev.type,
+                   setup=MESH_SETUP)
+        if self.dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out = tmp / "eref_ranks"
+        ranks = spawn_ranks(mesh_rank, ACROSS_RANKS, job, out, ACROSS_TIMEOUT_S)
+        lines = want.decode().splitlines()
+        for name in ranks[0]["runs"]:
+            for r in ranks:
+                rec = r["runs"][name]
+                what = f"{name}, rank {r['rank']} {r['coords']}"
+                self.check(rec["hits"] == lines and len(rec["hits"]) == EREF_JAX_HITS,
+                           f"{what}: {len(rec['hits'])} hits, phase 7's")
+                self.check(rec["shard"][1], f"{what}: its shard of {rec['shard'][0]} bytes "
+                                            f"equals its block of a one-device table")
+                la = rec["launches"]
+                self.check(la["scan_hits"] == la["window_hits"] == n_chunks
+                           and la["scan_chunk"] == 0,
+                           f"{what}: launched scan_hits and window_hits once a chunk, scan_chunk "
+                           f"never ({la['scan_hits']}, {la['window_hits']}, {la['scan_chunk']}; "
+                           f"{n_chunks} chunks)")
+                (a_s, a_b), (b_s, b_b) = rec["collectives"]["A"], rec["collectives"]["B"]
+                say(f"  {what}: {rec['wall_s']:.3f} s; Phase A {rec['phase_a_s']:.3f} s "
+                    f"(collectives {a_s * 1e3:.1f} ms, {a_b:.0f} bytes), Phase B "
+                    f"{rec['phase_b_s']:.3f} s (collectives {b_s * 1e3:.1f} ms, {b_b:.0f} "
+                    f"bytes); peak {rec['peak_bytes'] / 2**30:.3f} GiB")
+            files = sorted(p.name for p in out.glob(f"ref_names.{name}.rank*.txt"))
+            self.check(files == [f"ref_names.{name}.rank0.txt"]
+                       and (out / files[0]).read_bytes() == want,
+                       f"{name}: ref_names.txt written by rank 0 alone ({files}), "
+                       f"byte-identical to phase 7's")
+        self.records["eref_two_ranks"] = ranks
+
+    def pipeline_mesh(self, config: Path, tmp: Path) -> None:
+        """Phase 22: ``run_pipeline(cfg, mesh=...)`` on a copy of phase 14's
+        world, ``ACROSS_RANKS`` processes on the one card under gloo at
+        (2, 1): the final FASTA byte-identical to phase 15's,
+        ``node_scores.out`` within ``PROB_ATOL`` of it, K1-K3 launched a
+        scoring batch and ``scan_hits``/``window_hits`` a chunk on every
+        rank; each step's seconds."""
+        from palace_tpu_torch.config import PalaceConfig
+
+        ref = self.records["pipeline"]
+        job = dict(work=_pipeline_rank_work, config=str(config), device=self.dev.type,
+                   setup=MESH_SETUP)
+        if self.dev.type == "cuda":
+            torch.cuda.empty_cache()
+        ranks = spawn_ranks(mesh_rank, ACROSS_RANKS, job, tmp / "pipeline_ranks",
+                            ACROSS_TIMEOUT_S)
+        out = PalaceConfig.from_file(config).output_files()
+        final = out["final_fasta"]
+        self.check(all(r["final"] == str(final) for r in ranks)
+                   and final.read_bytes() == ref["final_bytes"],
+                   f"{final.name} across {ACROSS_RANKS} ranks byte-identical to phase 15's")
+        rows = [line.split("\t") for line in out["node_score"].read_text().splitlines()]
+        names, probs = [n for n, _ in rows], np.array([float(p) for _, p in rows])
+        err = float(np.abs(probs - ref["scores"][1]).max()) if names == ref["scores"][0] \
+            else float("inf")
+        self.check(err <= PROB_ATOL, f"node_scores.out: the same contigs in order, max |dp| "
+                                     f"{err:.3g} from phase 15's <= {PROB_ATOL}")
+        n, c = ref["n_batches"], ref["n_chunks"]
+        for r in ranks:
+            la = r["launches"]
+            want = dict(transition_counts=n, sage_rounds=n, conv_head=3 * n, scan_hits=c,
+                        window_hits=c, scan_chunk=0)
+            self.check({k: la[k] for k in want} == want,
+                       f"pipeline, rank {r['rank']}: launched {want} (got "
+                       f"{ {k: la[k] for k in want} })")
+            say(f"  rank {r['rank']}: {r['wall_s']:.3f} s, peak {r['peak_bytes'] / 2**30:.3f} GiB; "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(r["seconds"].items())
+                            if k.startswith("step") or k in ("gcn.score", "eref.count_reads",
+                                                             "eref.scan_refs")))
+        self.records["pipeline_mesh"] = ranks
+
+
+def run_across_devices_phases(smoke: Smoke, eref_world, pipeline_config, tmp: Path) -> None:
+    """Phases 20-22, after the card is freed of the earlier phases' models:
+    eref on phase 6's world (kept in ``tmp``), one rank then two, and the
+    pipeline on the copy of phase 14's world."""
+    import gc
+
+    gc.collect()
+    if smoke.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if eref_world:
+        with torch.inference_mode():
+            ok = smoke.phase("eref across devices: one rank", smoke.eref_mesh_one_rank,
+                             eref_world, tmp)
+        if ok:
+            smoke.phase("eref across devices: two ranks on one card", smoke.eref_mesh_two_ranks,
+                        eref_world, tmp)
+    if pipeline_config:
+        smoke.phase("the pipeline across devices: two ranks on one card", smoke.pipeline_mesh,
+                    pipeline_config, tmp)
+
+
 def run_graph_phases(smoke: Smoke) -> None:
     """The graph path on the host, in a temporary directory."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -2780,12 +3207,18 @@ def run_graph_phases(smoke: Smoke) -> None:
             smoke.phase("graph path", smoke.graph_path, world, Path(tmp))
 
 
-def run_pipeline_phases(smoke: Smoke) -> None:
-    """Phases 14-15, the whole pipeline, in a temporary directory."""
+def run_pipeline_phases(smoke: Smoke, keep: Path | None = None) -> Path | None:
+    """Phases 14-15, the whole pipeline, in a temporary directory; with
+    ``keep``, the world is first copied there for phase 22, and the copy's
+    config returned."""
+    twin = None
     with tempfile.TemporaryDirectory() as tmp:
         world = smoke.phase("pipeline world", smoke.pipeline_world, Path(tmp))
         if world:
+            if keep is not None:
+                twin = copy_pipeline_world(world, Path(tmp), keep / "pipeline_world")
             smoke.phase("pipeline", smoke.pipeline, world)
+    return twin
 
 
 def run_train_phases(smoke: Smoke) -> None:
@@ -2844,11 +3277,13 @@ def run_phases(smoke: Smoke) -> None:
         smoke.phase("slice against the plain versions", smoke.slice_against_plain, params)
 
 
-def run_eref_phases(smoke: Smoke) -> None:
-    """Phases 6-11 on ``smoke.dev``, in a temporary directory."""
+def run_eref_phases(smoke: Smoke, keep: Path | None = None):
+    """Phases 6-11 on ``smoke.dev``, in a temporary directory, or with the
+    eref world in ``keep``, returned for phases 20-21."""
     with torch.inference_mode(), tempfile.TemporaryDirectory() as tmp:
-        world = smoke.phase("eref world", smoke.eref_world, Path(tmp))
+        world = smoke.phase("eref world", smoke.eref_world, keep or Path(tmp))
         table, hits = (world and smoke.phase("eref slice", smoke.eref_slice, world)) or (None, [])
+        counted = table is not None
         if table:
             smoke.phase("K4 fused on real chunks", smoke.scan_chunk_on_real_chunks, world, table)
             smoke.phase("K4 at the main path's shapes", smoke.k4_at_main_shapes, world, table)
@@ -2860,6 +3295,7 @@ def run_eref_phases(smoke: Smoke) -> None:
         if smoke.dev.type == "cuda":
             torch.cuda.empty_cache()
         smoke.phase("eref slice against the CPU", smoke.eref_against_cpu, Path(tmp))
+    return world if keep is not None and counted else None
 
 
 def main() -> int:
@@ -2894,19 +3330,23 @@ def main() -> int:
     smoke.native_build()
     smoke.phase("build", smoke.build)
     if not smoke.failures:
-        run_phases(smoke)
-        run_eref_phases(smoke)
-        run_graph_phases(smoke)
-        run_pipeline_phases(smoke)
-        run_train_phases(smoke)
-        run_mesh_phases(smoke)
+        with tempfile.TemporaryDirectory() as keep:
+            run_phases(smoke)
+            eref_world = run_eref_phases(smoke, Path(keep))
+            run_graph_phases(smoke)
+            pipeline_config = run_pipeline_phases(smoke, Path(keep))
+            run_train_phases(smoke)
+            run_mesh_phases(smoke)
+            run_across_devices_phases(smoke, eref_world, pipeline_config, Path(keep))
     if smoke.failures:
         say("FAILED: " + "; ".join(smoke.failures))
         return 1
     # each kernel's launches on its own main path
     launches = dict(smoke.records["slice"]["launches"],
                     scan_chunk=smoke.records["eref"]["launches"]["scan_chunk"],
-                    good_windows=smoke.records["per_reference"]["launches"]["good_windows"])
+                    good_windows=smoke.records["per_reference"]["launches"]["good_windows"],
+                    scan_hits=smoke.records["eref_mesh"]["launches"]["scan_hits"],
+                    window_hits=smoke.records["eref_mesh"]["launches"]["window_hits"])
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rec = smoke.records[name]

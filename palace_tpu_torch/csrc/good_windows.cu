@@ -2,13 +2,22 @@
 // good_windows_pallas (palace_tpu/ops/pallas_kernels.py) and, on Phase B's
 // path, its XLA twin good_windows_batch (palace_tpu/ops/window.py) together
 // with the unpack, hash and lookup before it (palace_tpu/search/eref.py
-// _scan_body).  Two entries share the window stage:
+// _scan_body).  Four entries share the hashing and the window stage:
 //
 //   palace_good_windows  counts and hashes (NB, L, 3) → flags: the one-to-one
 //                        counterpart of good_windows_pallas;
 //   palace_scan_chunk    one Phase B chunk straight from the packed phagedb:
 //                        codes → 3 canonical hashes → 3 count-table reads →
-//                        flags, nothing but the flags in device memory.
+//                        flags, nothing but the flags in device memory;
+//   palace_scan_hits     the same chunk against one rank's shard of a table
+//                        split by hash range over a mesh: the hit bit of each
+//                        position and coder whose hash lies in the shard's
+//                        range [lo, hi), as three bit-planes (rows, 3, L / 8);
+//                        each bit has one owning rank, so a sum of the ranks'
+//                        planes is their OR (JAX's _scan_ref_fused_sharded
+//                        joins int32 counts with a psum instead);
+//   palace_window_hits   the OR-ed planes → flags: n = the popcount of a
+//                        position's three bits, then the window stage.
 //
 // Per row and position j: a coder hits when its count equals least_depth
 // and its hash is not 0; single = at least one of the 3 coders hits, trio =
@@ -59,6 +68,14 @@
 // 8192 positions, so 6 % more reads at window 500 (24 % at 2048), one
 // launch a chunk, and no indicator round trip; a 4.19 M-position chunk
 // still makes 512 blocks for the card's 132 SMs.
+//
+// palace_scan_hits reads what scan_chunk reads but only the hashes of its own
+// range read the shard, about 1 / world of them (each still a 32-byte sector
+// at random); it writes 0.375 B a position, three bits, and needs no halo:
+// its blocks take kScanTile positions and hash them as scan_chunk's step 1b
+// does.  palace_window_hits reads the 0.375 B and writes the 0.125 B of flags;
+// a thread turns one byte of each plane into 8 indicators, and its blocks of
+// kScanTile positions reread the `window` before them, as scan_chunk's do.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -185,6 +202,60 @@ __host__ __device__ constexpr int plane_words(int window) {
   return (kScanTile + window + 64) / 32 + 4;
 }
 
+// Step 1a: the bit-planes of a row's positions [32 wbase, 32 (wbase + nw)) in
+// shared memory, from its bytes of the packed phagedb: codes from cb0, mask
+// bits from mb0; positions at or past len are invalid.
+__device__ __forceinline__ void load_planes(const uint8_t* __restrict__ cb0,
+                                            const uint8_t* __restrict__ mb0, int len, int wbase,
+                                            int nw, uint32_t* lo_p, uint32_t* hi_p,
+                                            uint32_t* inv_p) {
+  for (int w = threadIdx.x; w < nw; w += kThreads) {
+    const int p = (wbase + w) * 32;
+    uint64_t code = 0;
+    uint32_t inv = 0xffffffffu;
+    if (p < len) {
+      const int nb = min(32, len - p);  // positions of the word inside the reference
+      const uint8_t* cb = cb0 + p / 4;
+      const uint8_t* mb = mb0 + p / 8;
+      for (int b = 0; b < (nb + 3) / 4; ++b) code |= (uint64_t)cb[b] << (8 * b);
+      uint32_t m = 0;
+      for (int b = 0; b < (nb + 7) / 8; ++b) m |= (uint32_t)mb[b] << (8 * b);
+      inv = m | (nb == 32 ? 0u : 0xffffffffu << nb);
+    }
+    lo_p[w] = even_bits(code);
+    hi_p[w] = even_bits(code >> 1);
+    inv_p[w] = inv;
+  }
+}
+
+struct Hash3 {
+  uint32_t v[3];
+};
+
+// Step 1b for the k-mer at q positions past the planes' first word: its
+// three canonical hashes, 0 where one of its bases is invalid.
+__device__ __forceinline__ Hash3 hash3(const uint32_t* lo_p, const uint32_t* hi_p,
+                                       const uint32_t* inv_p, int q, int k,
+                                       const CoderMasks& cm) {
+  Hash3 h{{0, 0, 0}};
+  const uint32_t kmask = k == 32 ? 0xffffffffu : (1u << k) - 1u;
+  const int w = q >> 5, s = q & 31;
+  const uint32_t inv = __funnelshift_r(inv_p[w], inv_p[w + 1], s);
+  if ((inv & kmask) == 0) {
+    const uint32_t lo = __funnelshift_r(lo_p[w], lo_p[w + 1], s);
+    const uint32_t hi = __funnelshift_r(hi_p[w], hi_p[w + 1], s);
+    const uint32_t c0 = ~(lo ^ hi), c1 = ~hi, c2 = ~lo;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const uint32_t x = (c0 & cm.f[i][0]) | (c1 & cm.f[i][1]) | (c2 & cm.f[i][2]);
+      const uint32_t fwd = __brev(x) >> (32 - k);
+      const uint32_t rc = (c0 & cm.r[i][0]) | (hi & cm.r[i][1]) | (lo & cm.r[i][2]);
+      h.v[i] = min(fwd, rc);
+    }
+  }
+  return h;
+}
+
 __global__ void __launch_bounds__(kThreads) scan_chunk_kernel(
     const uint8_t* __restrict__ packed, const uint8_t* __restrict__ mask,
     const int64_t* __restrict__ offsets, const uint8_t* __restrict__ table,
@@ -209,72 +280,140 @@ __global__ void __launch_bounds__(kThreads) scan_chunk_kernel(
   const int wbase = ea >> 5;  // first plane word: position 32 wbase
 
   // 1a. bit-planes of the positions [32 wbase, 32 (wbase + nw))
-  if (eb > ea) {
-    for (int w = threadIdx.x; w < nw; w += kThreads) {
-      const int p = (wbase + w) * 32;
-      uint64_t code = 0;
-      uint32_t inv = 0xffffffffu;
-      if (p < len) {
-        const int nb = min(32, len - p);  // positions of the word inside the reference
-        const uint8_t* cb = packed + code_off + p / 4;
-        const uint8_t* mb = mask + mask_off + p / 8;
-        for (int b = 0; b < (nb + 3) / 4; ++b) code |= (uint64_t)cb[b] << (8 * b);
-        uint32_t m = 0;
-        for (int b = 0; b < (nb + 7) / 8; ++b) m |= (uint32_t)mb[b] << (8 * b);
-        inv = m | (nb == 32 ? 0u : 0xffffffffu << nb);
-      }
-      lo_p[w] = even_bits(code);
-      hi_p[w] = even_bits(code >> 1);
-      inv_p[w] = inv;
-    }
-  }
+  if (eb > ea) load_planes(packed + code_off, mask + mask_off, len, wbase, nw, lo_p, hi_p, inv_p);
   __syncthreads();
 
   // 1b. indicators of [e0, t0 + kScanTile): kBatch positions a thread hashed,
   // then their 3 kBatch table reads issued together, then counted
-  const uint32_t kmask = k == 32 ? 0xffffffffu : (1u << k) - 1u;
   for (int i0 = threadIdx.x; i0 < n_ext; i0 += kThreads * kBatch) {
-    uint32_t h[kBatch][3];
+    Hash3 h[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       const int pos = e0 + i0 + b * kThreads;
-      h[b][0] = h[b][1] = h[b][2] = 0;
-      if (pos >= ea && pos < eb) {
-        const int q = pos - 32 * wbase;
-        const int w = q >> 5, s = q & 31;
-        const uint32_t inv = __funnelshift_r(inv_p[w], inv_p[w + 1], s);
-        if ((inv & kmask) == 0) {
-          const uint32_t lo = __funnelshift_r(lo_p[w], lo_p[w + 1], s);
-          const uint32_t hi = __funnelshift_r(hi_p[w], hi_p[w + 1], s);
-          const uint32_t c0 = ~(lo ^ hi), c1 = ~hi, c2 = ~lo;
-#pragma unroll
-          for (int i = 0; i < 3; ++i) {
-            const uint32_t x = (c0 & cm.f[i][0]) | (c1 & cm.f[i][1]) | (c2 & cm.f[i][2]);
-            const uint32_t fwd = __brev(x) >> (32 - k);
-            const uint32_t rc = (c0 & cm.r[i][0]) | (hi & cm.r[i][1]) | (lo & cm.r[i][2]);
-            h[b][i] = min(fwd, rc);
-          }
-        }
-      }
+      h[b] = pos >= ea && pos < eb ? hash3(lo_p, hi_p, inv_p, pos - 32 * wbase, k, cm)
+                                   : Hash3{{0, 0, 0}};
     }
     uint32_t cnt[kBatch][3];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b)
 #pragma unroll
       for (int i = 0; i < 3; ++i)
-        cnt[b][i] = h[b][i] ? __ldg(table + (size_t)h[b][i]) : 0u;
+        cnt[b][i] = h[b].v[i] ? __ldg(table + (size_t)h[b].v[i]) : 0u;
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       const int i = i0 + b * kThreads;
       int n = 0;
 #pragma unroll
-      for (int s = 0; s < 3; ++s) n += (h[b][s] != 0) & (cnt[b][s] == (uint32_t)least_depth);
+      for (int s = 0; s < 3; ++s) n += (h[b].v[s] != 0) & (cnt[b][s] == (uint32_t)least_depth);
       if (i < n_ext) cs[i] = indicator(n);
     }
   }
   __syncthreads();
   window_flags<kScanTile>(cs, warp_sums, n_ext, t0, target, window, one_min, three_min,
                           out + (size_t)row * (target / 8));
+}
+
+// One rank's hit bits of a Phase B chunk against its shard [lo, hi) of the
+// table: bit j % 8 of byte j / 8 of plane c is set where coder c's hash h at
+// position j is not 0, lies in [lo, hi) and shard[h - lo] == least_depth.
+__global__ void __launch_bounds__(kThreads) scan_hits_kernel(
+    const uint8_t* __restrict__ packed, const uint8_t* __restrict__ mask,
+    const int64_t* __restrict__ offsets, const uint8_t* __restrict__ shard,
+    const CoderMasks cm, uint8_t* __restrict__ out, int target, int k, int least_depth,
+    unsigned long long lo, unsigned long long hi) {
+  constexpr int nw = plane_words(0);
+  __shared__ uint32_t planes[3 * nw];
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * kScanTile;  // a multiple of 32
+  const int64_t code_off = offsets[3 * row], mask_off = offsets[3 * row + 1];
+  const int len = (int)min((long long)offsets[3 * row + 2], (long long)target);
+  const int eb = min(t0 + kScanTile, len - k + 1);  // k-mers start in [t0, eb)
+  uint32_t* lo_p = planes;
+  uint32_t* hi_p = lo_p + nw;
+  uint32_t* inv_p = hi_p + nw;
+  if (eb > t0) load_planes(packed + code_off, mask + mask_off, len, t0 >> 5, nw, lo_p, hi_p, inv_p);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int plane_bytes = target / 8;
+  uint8_t* orow = out + (size_t)row * 3 * plane_bytes;
+  for (int i0 = threadIdx.x; i0 < kScanTile; i0 += kThreads * kBatch) {
+    Hash3 h[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int pos = t0 + i0 + b * kThreads;
+      h[b] = pos < eb ? hash3(lo_p, hi_p, inv_p, pos - t0, k, cm) : Hash3{{0, 0, 0}};
+    }
+    uint32_t cnt[kBatch][3];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const unsigned long long v = h[b].v[i];
+        const bool mine = v != 0 && v >= lo && v < hi;
+        cnt[b][i] = mine ? __ldg(shard + (size_t)(v - lo)) : 0xffffffffu;
+      }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int p0 = t0 + i0 + b * kThreads - lane;  // a multiple of 32
+      const unsigned bits[3] = {__ballot_sync(0xffffffffu, cnt[b][0] == (uint32_t)least_depth),
+                                __ballot_sync(0xffffffffu, cnt[b][1] == (uint32_t)least_depth),
+                                __ballot_sync(0xffffffffu, cnt[b][2] == (uint32_t)least_depth)};
+      const int c = lane >> 2, byte = lane & 3;  // lanes 0-11: plane c's byte
+      if (lane < 12 && p0 + 8 * byte < target)
+        orow[c * plane_bytes + p0 / 8 + byte] = (uint8_t)(bits[c] >> (8 * byte));
+    }
+  }
+}
+
+// Flags from the OR-ed planes of scan_hits: a position's n is the popcount of
+// its three bits; then the window stage over kScanTile positions and the
+// `window` before them.
+__global__ void __launch_bounds__(kThreads) window_hits_kernel(
+    const uint8_t* __restrict__ planes, uint8_t* __restrict__ out, int target, int window,
+    int one_min, int three_min) {
+  extern __shared__ int cs[];  // kScanTile + window entries
+  __shared__ int warp_sums[kWarps];
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * kScanTile;
+  const int n_ext = kScanTile + window;
+  const int e0 = t0 - window;  // position of entry 0
+  const int plane_bytes = target / 8;
+  const uint8_t* p0 = planes + (size_t)row * 3 * plane_bytes;
+  const uint8_t* p1 = p0 + plane_bytes;
+  const uint8_t* p2 = p1 + plane_bytes;
+
+  // 1. indicators of [e0, t0 + kScanTile), one byte of each plane (8
+  // positions) a thread; positions outside [0, target) count as misses
+  const int b_first = (e0 >= 0 ? e0 : e0 - 7) / 8;  // floor(e0 / 8)
+  const int b_last = (t0 + kScanTile - 1) / 8;
+  for (int b = b_first + threadIdx.x; b <= b_last; b += kThreads) {
+    uint32_t x0 = 0, x1 = 0, x2 = 0;
+    if (b >= 0 && b < plane_bytes) {
+      x0 = p0[b];
+      x1 = p1[b];
+      x2 = p2[b];
+    }
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int i = 8 * b + s - e0;
+      if (i >= 0 && i < n_ext)
+        cs[i] = indicator((int)(((x0 >> s) & 1) + ((x1 >> s) & 1) + ((x2 >> s) & 1)));
+    }
+  }
+  __syncthreads();
+  window_flags<kScanTile>(cs, warp_sums, n_ext, t0, target, window, one_min, three_min,
+                          out + (size_t)row * plane_bytes);
+}
+
+CoderMasks read_masks(const void* coder_masks) {
+  CoderMasks cm;
+  const uint32_t* m = (const uint32_t*)coder_masks;
+  for (int i = 0; i < 9; ++i) {
+    cm.f[i / 3][i % 3] = m[i];
+    cm.r[i / 3][i % 3] = m[9 + i];
+  }
+  return cm;
 }
 
 template <typename Kernel>
@@ -304,12 +443,7 @@ extern "C" int palace_scan_chunk(const void* packed, const void* mask, const voi
                                  const void* table, const void* coder_masks, void* out,
                                  int rows, int target, int k, int window, int one_min,
                                  int three_min, int least_depth, void* stream) {
-  CoderMasks cm;
-  const uint32_t* m = (const uint32_t*)coder_masks;
-  for (int i = 0; i < 9; ++i) {
-    cm.f[i / 3][i % 3] = m[i];
-    cm.r[i / 3][i % 3] = m[9 + i];
-  }
+  const CoderMasks cm = read_masks(coder_masks);
   const int smem = (kScanTile + window) * (int)sizeof(int) + 3 * plane_words(window) * 4;
   if (int err = set_smem(scan_chunk_kernel, smem)) return err;
   const dim3 grid((target + kScanTile - 1) / kScanTile, rows);
@@ -317,5 +451,30 @@ extern "C" int palace_scan_chunk(const void* packed, const void* mask, const voi
       (const uint8_t*)packed, (const uint8_t*)mask, (const int64_t*)offsets,
       (const uint8_t*)table, cm, (uint8_t*)out, target, k, window, one_min, three_min,
       least_depth);
+  return (int)cudaGetLastError();
+}
+
+// scan_chunk's inputs with the rank's shard of the table and its hash range
+// [lo, hi) in place of the table → (rows, 3, target / 8) hit bit-planes.
+extern "C" int palace_scan_hits(const void* packed, const void* mask, const void* offsets,
+                                const void* shard, const void* coder_masks, void* out,
+                                int rows, int target, int k, int least_depth, long long lo,
+                                long long hi, void* stream) {
+  const dim3 grid((target + kScanTile - 1) / kScanTile, rows);
+  scan_hits_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)packed, (const uint8_t*)mask, (const int64_t*)offsets,
+      (const uint8_t*)shard, read_masks(coder_masks), (uint8_t*)out, target, k, least_depth,
+      (unsigned long long)lo, (unsigned long long)hi);
+  return (int)cudaGetLastError();
+}
+
+// (rows, 3, target / 8) OR-ed hit bit-planes → (rows, target / 8) flags.
+extern "C" int palace_window_hits(const void* planes, void* out, int rows, int target,
+                                  int window, int one_min, int three_min, void* stream) {
+  const int smem = (kScanTile + window) * (int)sizeof(int);
+  if (int err = set_smem(window_hits_kernel, smem)) return err;
+  const dim3 grid((target + kScanTile - 1) / kScanTile, rows);
+  window_hits_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)planes, (uint8_t*)out, target, window, one_min, three_min);
   return (int)cudaGetLastError();
 }

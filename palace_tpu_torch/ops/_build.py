@@ -46,6 +46,10 @@ KERNELS = {
                      [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "scan_chunk": ("good_windows.cu", "palace_scan_chunk",
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "scan_hits": ("good_windows.cu", "palace_scan_hits",
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _P]),
+    "window_hits": ("good_windows.cu", "palace_window_hits",
+                    [_P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

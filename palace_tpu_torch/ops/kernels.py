@@ -1,6 +1,7 @@
 """The port's CUDA kernels, each beside its plain PyTorch version: the
-scorer's K1-K3 and the eref search's K4 (``good_windows``, and
-``scan_chunk``, which fuses it with the hashing and lookup before it).
+scorer's K1-K3 and the eref search's K4 (``good_windows``; ``scan_chunk``,
+which fuses it with the hashing and lookup before it; and, against a table
+split over a mesh, ``scan_hits`` and ``window_hits``).
 
 Counterpart of ``palace_tpu/ops/pallas_kernels.py``.  Every wrapper
 takes the plain version for tensors on the CPU, and for CUDA tensors
@@ -408,9 +409,15 @@ def pack_bits_plain(flags: torch.Tensor) -> torch.Tensor:
 def good_windows_plain(counts: torch.Tensor, hashes: torch.Tensor, window: int,
                        one_min: int, three_min: int, least_depth: int = 3) -> torch.Tensor:
     """Plain version of ``good_windows``."""
-    NB, L, _ = counts.shape
     hit = (counts == least_depth) & (hashes != 0)
-    n = hit.sum(dim=2)
+    return _window_stage_plain(hit.sum(dim=2), window, one_min, three_min)
+
+
+def _window_stage_plain(n: torch.Tensor, window: int, one_min: int,
+                        three_min: int) -> torch.Tensor:
+    """(NB, L) coders hit a position → (NB, L/8) packed good flags: K4's
+    window stage."""
+    L = n.shape[1]
     cs = torch.cumsum((n > 0).to(torch.int32), dim=1)
     ct = torch.cumsum((n == 3).to(torch.int32), dim=1)
     # the sum over the `window` positions ending at j; for j < window the
@@ -479,17 +486,42 @@ def good_windows(counts: torch.Tensor, hashes: torch.Tensor, window: int,
 SCAN_TILE = 8192
 
 
-def scan_counts_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
-                      table: torch.Tensor, perm: np.ndarray, k: int, target: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The counts and hashes, (rows, target, 3) uint8 and int64, that
-    ``good_windows`` scans for one chunk (the inputs of ``scan_chunk``):
-    slice each row's packed codes, unpack, mask the tail past ``ref_len``
-    (it may hold the next reference), hash, pad the last k-1 positions
-    with hash 0, and look the hashes up (hash 0 always reads 0).  A pad
-    row, offsets (0, 0, 0), masks to code 4 everywhere.  The profiler
-    spans ``eref.gather``, ``eref.hash`` and ``eref.lookup`` name the
-    three steps."""
+def _check_scan(name: str, packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
+                table: torch.Tensor, perm: np.ndarray, k: int, target: int) -> None:
+    """The checks ``scan_chunk`` and ``scan_hits`` share; the offsets are read
+    back to check them against the buffers (a synchronize)."""
+    _require(all(t.dtype == torch.uint8 and t.dim() == 1 and t.is_contiguous()
+                 for t in (packed, mask, table)),
+             f"{name}: packed, mask and table must be contiguous uint8 (n,)")
+    _require(offsets.dtype == torch.int64 and offsets.dim() == 2 and offsets.shape[1] == 3,
+             f"{name}: offsets must be int64 (rows, 3)")
+    _require(1 <= k <= 32 and np.shape(perm) == (k, 3),
+             f"{name}: k must be in [1, 32] and perm (k, 3)")
+    _require(target % 8 == 0 and k <= target <= 1 << 30,
+             f"{name}: target must be a multiple of 8 in [k, 2^30]")
+    rows = offsets.shape[0]
+    _require(rows < 65536, f"{name}: at most 65535 rows a launch")
+    if rows:
+        low, high = torch.stack([offsets.amin(0), offsets.amax(0)]).tolist()
+        _require(min(low) >= 0 and high[0] + target // 4 <= packed.numel()
+                 and high[1] + target // 8 <= mask.numel(),
+                 f"{name}: offsets and ref_len must be >= 0, and each row's target/4 code "
+                 "bytes and target/8 mask bytes inside packed and mask")
+
+
+def _coder_masks(perm: np.ndarray, k: int):
+    """``kmer.coder_masks`` as the 18 uint32 the kernels take."""
+    return (ctypes.c_uint32 * 18)(*coder_masks(perm, k).reshape(-1).tolist())
+
+
+def scan_hashes_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
+                      perm: np.ndarray, k: int, target: int) -> torch.Tensor:
+    """The (rows, target, 3) int64 hashes of one chunk (the inputs of
+    ``scan_chunk``): slice each row's packed codes, unpack, mask the tail
+    past ``ref_len`` (it may hold the next reference), hash, and pad the
+    last k-1 positions with hash 0.  A pad row, offsets (0, 0, 0), masks to
+    code 4 everywhere.  The profiler spans ``eref.gather`` and
+    ``eref.hash`` name the two steps."""
     dev = packed.device
     with record_function("eref.gather"):
         pb = packed[offsets[:, 0:1] + torch.arange(target // 4, device=dev)]
@@ -498,7 +530,17 @@ def scan_counts_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.T
         codes.masked_fill_(torch.arange(target, device=dev) >= offsets[:, 2:3], 4)
     with record_function("eref.hash"):
         hashes = kmer_hashes_masked(codes, perm, k)
-        hashes = torch.nn.functional.pad(hashes, (0, 0, 0, k - 1))
+        return torch.nn.functional.pad(hashes, (0, 0, 0, k - 1))
+
+
+def scan_counts_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
+                      table: torch.Tensor, perm: np.ndarray, k: int, target: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The counts and hashes, (rows, target, 3) uint8 and int64, that
+    ``good_windows`` scans for one chunk: ``scan_hashes_plain``, then the
+    table lookup (hash 0 always reads 0) under the profiler span
+    ``eref.lookup``."""
+    hashes = scan_hashes_plain(packed, mask, offsets, perm, k, target)
     with record_function("eref.lookup"):
         counts = table[hashes].masked_fill_(hashes == 0, 0)
     return counts, hashes
@@ -549,37 +591,142 @@ def scan_chunk(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
     them against the buffers, one synchronize a call.
     """
     cuda = _same_device("scan_chunk", packed, mask, offsets, table)
-    _require(all(t.dtype == torch.uint8 and t.dim() == 1 and t.is_contiguous()
-                 for t in (packed, mask, table)),
-             "scan_chunk: packed, mask and table must be contiguous uint8 (n,)")
-    _require(offsets.dtype == torch.int64 and offsets.dim() == 2 and offsets.shape[1] == 3,
-             "scan_chunk: offsets must be int64 (rows, 3)")
-    _require(1 <= k <= 32 and table.numel() == 1 << k and np.shape(perm) == (k, 3),
-             "scan_chunk: k must be in [1, 32], the table 2^k bytes and perm (k, 3)")
-    _require(target % 8 == 0 and k <= target <= 1 << 30,
-             "scan_chunk: target must be a multiple of 8 in [k, 2^30]")
+    _check_scan("scan_chunk", packed, mask, offsets, table, perm, k, target)
+    _require(table.numel() == 1 << k, "scan_chunk: the table must hold 2^k bytes")
     _require(1 <= window <= GOOD_WINDOWS_MAX_WINDOW,
              f"scan_chunk: window must be in [1, {GOOD_WINDOWS_MAX_WINDOW}]")
-    rows = offsets.shape[0]
-    _require(rows < 65536, "scan_chunk: at most 65535 rows a launch")
-    if rows:
-        low, high = torch.stack([offsets.amin(0), offsets.amax(0)]).tolist()
-        _require(min(low) >= 0 and high[0] + target // 4 <= packed.numel()
-                 and high[1] + target // 8 <= mask.numel(),
-                 "scan_chunk: offsets and ref_len must be >= 0, and each row's target/4 code "
-                 "bytes and target/8 mask bytes inside packed and mask")
     if not cuda:
         return scan_chunk_plain(packed, mask, offsets, table, perm, k, target, window,
                                 one_min, three_min, least_depth)
+    rows = offsets.shape[0]
     offsets = offsets.contiguous()
     out = torch.empty(rows, target // 8, dtype=torch.uint8, device=packed.device)
     if rows == 0:
         return out
-    masks = (ctypes.c_uint32 * 18)(*coder_masks(perm, k).reshape(-1).tolist())
+    masks = _coder_masks(perm, k)  # referenced until the call returns
     err = _build.entry("scan_chunk")(
         packed.data_ptr(), mask.data_ptr(), offsets.data_ptr(), table.data_ptr(),
         ctypes.addressof(masks), out.data_ptr(), rows, target, k, window, one_min, three_min,
         least_depth, _stream(packed))
     LAUNCHES["scan_chunk"] += 1
     _build.check("scan_chunk", err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4 against a table split by hash range over a mesh: each rank's hit
+# bit-planes of a chunk, then the flags of their OR
+# ---------------------------------------------------------------------------
+
+def scan_hits_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
+                    shard: torch.Tensor, lo: int, perm: np.ndarray, k: int, target: int,
+                    least_depth: int = 3) -> torch.Tensor:
+    """Plain version of ``scan_hits``: ``scan_counts_plain``'s hashes, the
+    counts of those in ``[lo, lo + shard.numel())`` read from the shard and
+    every other count 0, the hits of ``good_windows_plain`` per coder, packed
+    along the positions."""
+    hashes = scan_hashes_plain(packed, mask, offsets, perm, k, target)
+    mine = (hashes != 0) & (hashes >= lo) & (hashes < lo + shard.numel())
+    counts = torch.zeros(hashes.shape, dtype=torch.uint8, device=hashes.device)
+    counts[mine] = shard[hashes[mine] - lo]
+    hit = mine & (counts == least_depth)  # (rows, target, 3)
+    rows = hit.shape[0]
+    return pack_bits_plain(hit.permute(0, 2, 1).reshape(rows * 3, target)).reshape(
+        rows, 3, target // 8)
+
+
+def scan_hits(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
+              shard: torch.Tensor, lo: int, perm: np.ndarray, k: int, target: int,
+              least_depth: int = 3) -> torch.Tensor:
+    """One rank's hit bit-planes of a Phase B chunk against its shard of a
+    count table split by hash range (``count_table.ShardedCountTable``).
+
+    ``scan_chunk``'s inputs, with ``shard`` (S,) uint8, the counts of the
+    hashes ``[lo, lo + S)``, in place of the table → (rows, 3, target/8)
+    uint8: bit j % 8 of byte j // 8 of plane c is set where coder c's hash at
+    position j is not 0, lies in the shard's range and counts
+    ``least_depth``.  Every hash lies in one rank's range, so the sum of
+    the ranks' planes (``dist.all_reduce``, uint8) is their OR, and
+    ``window_hits`` of that equals ``scan_chunk`` on the whole table.
+
+    Replaces, with ``window_hits``, ``good_windows_pallas``
+    (palace_tpu/ops/pallas_kernels.py) on the sharded route of the JAX
+    package's ``_scan_ref_fused_sharded`` (palace_tpu/search/eref.py), where
+    every device's partial lookups (int32 counts, 12 B a position) are
+    joined by a ``psum``; here 0.375 B a position crosses the mesh.  Bound
+    on the H100: bytes, 0.375 B a position in (codes and invalid bits) and
+    0.375 B out, plus the table reads of the rank's own hashes, about 1 /
+    world of them, a 32-byte sector each.  Design (``csrc/good_windows.cu``):
+    ``scan_chunk``'s steps 1a-1b (bit-planes in shared memory, funnel-shift
+    hashing, 24 reads issued together) over ``SCAN_TILE`` positions a
+    block, no window halo, and three ``__ballot_sync`` words a warp.
+    Integer work, so it equals the plain version.  Checks its inputs as
+    ``scan_chunk`` does (one synchronize a call).
+    """
+    cuda = _same_device("scan_hits", packed, mask, offsets, shard)
+    _check_scan("scan_hits", packed, mask, offsets, shard, perm, k, target)
+    _require(0 <= lo < 1 << k, "scan_hits: the shard's range [lo, lo + S) must start "
+                               "inside the 2^k hashes")
+    if not cuda:
+        return scan_hits_plain(packed, mask, offsets, shard, lo, perm, k, target, least_depth)
+    rows = offsets.shape[0]
+    offsets = offsets.contiguous()
+    out = torch.empty(rows, 3, target // 8, dtype=torch.uint8, device=packed.device)
+    if rows == 0:
+        return out
+    masks = _coder_masks(perm, k)  # referenced until the call returns
+    err = _build.entry("scan_hits")(
+        packed.data_ptr(), mask.data_ptr(), offsets.data_ptr(), shard.data_ptr(),
+        ctypes.addressof(masks), out.data_ptr(), rows, target, k, least_depth, lo,
+        lo + shard.numel(), _stream(packed))
+    LAUNCHES["scan_hits"] += 1
+    _build.check("scan_hits", err)
+    return out
+
+
+def window_hits_plain(planes: torch.Tensor, window: int, one_min: int,
+                      three_min: int) -> torch.Tensor:
+    """Plain version of ``window_hits``."""
+    rows, _, nbytes = planes.shape
+    bits = (planes[..., None] >> torch.arange(8, device=planes.device, dtype=torch.uint8)) & 1
+    n = bits.reshape(rows, 3, nbytes * 8).sum(dim=1)
+    return _window_stage_plain(n, window, one_min, three_min)
+
+
+def window_hits(planes: torch.Tensor, window: int, one_min: int,
+                three_min: int) -> torch.Tensor:
+    """Good-window flags from the OR of the ranks' ``scan_hits`` planes.
+
+    planes (rows, 3, L/8) uint8 → (rows, L/8) uint8 flags, bit j % 8 of
+    byte j // 8: a position's coders hit is the popcount of its three bits,
+    and the window stage is ``good_windows``'.
+
+    Replaces, with ``scan_hits``, ``good_windows_pallas``
+    (palace_tpu/ops/pallas_kernels.py) on the JAX package's sharded Phase B
+    route.  Bound on the H100: bytes, 0.375 B a position in and 0.125 B
+    out.  Design (``csrc/good_windows.cu``): a block takes ``SCAN_TILE``
+    positions of a row and the ``window`` before them, a thread turns one
+    byte of each plane into 8 indicators in shared memory, then the window
+    stage (scan, windowed sums, ``__ballot_sync``) shared with
+    ``good_windows`` and ``scan_chunk``.  Integer work, so it equals the
+    plain version.  Both routes check their inputs.
+    """
+    cuda = _same_device("window_hits", planes)
+    _require(planes.dtype == torch.uint8 and planes.dim() == 3 and planes.shape[1] == 3,
+             "window_hits: planes must be uint8 (rows, 3, L/8)")
+    _require(1 <= window <= GOOD_WINDOWS_MAX_WINDOW,
+             f"window_hits: window must be in [1, {GOOD_WINDOWS_MAX_WINDOW}]")
+    rows, _, nbytes = planes.shape
+    _require(rows < 65536 and nbytes * 8 <= 1 << 30,
+             "window_hits: at most 65535 rows a launch and 2^30 positions a row")
+    if not cuda:
+        return window_hits_plain(planes, window, one_min, three_min)
+    planes = planes.contiguous()
+    out = torch.empty(rows, nbytes, dtype=torch.uint8, device=planes.device)
+    if rows == 0 or nbytes == 0:
+        return out
+    err = _build.entry("window_hits")(planes.data_ptr(), out.data_ptr(), rows, nbytes * 8,
+                                      window, one_min, three_min, _stream(planes))
+    LAUNCHES["window_hits"] += 1
+    _build.check("window_hits", err)
     return out

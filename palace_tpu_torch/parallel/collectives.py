@@ -12,7 +12,9 @@ are written out, Megatron-style:
   block of the input; its backward gathers the input gradient) before the
   product, ``reduce_from_model`` (the partial products summed; its
   backward is the identity) after it;
-* ``all_mean`` over a group: the dp mean of the gradients and the loss.
+* ``all_mean`` over a group: the dp mean of the gradients and the loss;
+* ``gather_ragged`` over the whole mesh: every rank's 1-D segment, of any
+  length, on every rank (the sharded count table's exchange).
 
 Every one is built on ``dist.all_reduce`` alone: a gather is the sum of
 zero-filled full buffers, each rank writing its own block, which is
@@ -24,9 +26,10 @@ partials is rounded once, at the end).  With no group (one process)
 every collective is the identity.
 
 ``TIMING``: when ``enabled``, each collective synchronizes the card
-before and after itself and adds its seconds and count to ``seconds`` /
-``calls``, so a caller can read what the collectives cost apart from the
-work around them.  Off by default: the synchronizations cost overlap.
+before and after itself and adds its seconds, count and bytes on the wire
+to ``seconds`` / ``calls`` / ``bytes``, so a caller can read what the
+collectives cost apart from the work around them.  Off by default: the
+synchronizations cost overlap.
 """
 from __future__ import annotations
 
@@ -45,9 +48,10 @@ class _Timing:
     enabled: bool = False
     seconds: float = 0.0
     calls: int = 0
+    bytes: int = 0
 
     def reset(self) -> None:
-        self.seconds, self.calls = 0.0, 0
+        self.seconds, self.calls, self.bytes = 0.0, 0, 0
 
 
 TIMING = _Timing()
@@ -72,6 +76,7 @@ def all_reduce_(t: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Te
         _sync(t)
         TIMING.seconds += time.perf_counter() - t0
         TIMING.calls += 1
+        TIMING.bytes += wire.numel() * wire.element_size()
     if wire is not t:
         t.copy_(wire)
     return t
@@ -88,6 +93,23 @@ def gather_blocks(local: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch
     full = local.new_zeros(shape)
     block(full, mesh, axis, dim).copy_(local)
     return all_reduce_(full, mesh.group(axis))
+
+
+def gather_ragged(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's 1-D ``local``, whatever its length, concatenated in the
+    order of the mesh's grid, on every rank: the lengths in one small
+    all-reduce (a synchronize: they go to the host), then the segments in a
+    zero-filled buffer, each rank writing its own, summed (exact)."""
+    group = mesh.group_all
+    if group is None:
+        return local
+    sizes = torch.zeros(mesh.size, dtype=torch.int64, device=local.device)
+    sizes[mesh.index] = local.numel()
+    sizes = all_reduce_(sizes, group).tolist()
+    start = sum(sizes[:mesh.index])
+    full = local.new_zeros(sum(sizes))
+    full[start:start + local.numel()] = local
+    return all_reduce_(full, group)
 
 
 class _CopyToModel(torch.autograd.Function):

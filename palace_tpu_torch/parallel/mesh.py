@@ -75,6 +75,22 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return {"data": self.dp, "model": self.mp}
 
+    @property
+    def size(self) -> int:
+        """Ranks in the mesh."""
+        return self.grid.size
+
+    @property
+    def index(self) -> int:
+        """This rank's place in the row-major grid, 0 … size - 1."""
+        return int(np.flatnonzero(self.grid.ravel() == self.rank)[0])
+
+    @property
+    def group_all(self) -> Optional[dist.ProcessGroup]:
+        """The group of every rank of the mesh (the default group, which
+        ``make_mesh``'s grid spans), or None for a mesh of one rank."""
+        return dist.group.WORLD if dist.is_initialized() and self.size > 1 else None
+
     def axis_index(self, axis: str) -> int:
         return self.coords[0 if axis == "data" else 1]
 

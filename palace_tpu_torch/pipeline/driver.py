@@ -30,6 +30,11 @@ runs.  Only the scorer and eref run on the device; every other step,
 the step-5 thread pool included, is host work.  Nothing catches an error
 of the scorer or of eref, and no step moves to the CPU when the card was
 asked for.
+
+Across devices (``run_pipeline(cfg, mesh=...)``, a library argument as in
+the JAX package; the CLI builds no mesh) every rank of the mesh runs the
+pipeline: all of them run the scorer and eref together, and rank 0 alone
+runs and writes every host stage while the others wait at a barrier.
 """
 from __future__ import annotations
 
@@ -38,6 +43,9 @@ import shutil
 import time
 from pathlib import Path
 from typing import Callable, Dict, Optional
+
+import torch
+import torch.distributed as dist
 
 from palace_tpu_torch.assembly.path_fa import make_fa_from_path
 from palace_tpu_torch.config import PalaceConfig
@@ -63,6 +71,8 @@ from palace_tpu_torch.io.fasta import FastaStore, build_fai
 from palace_tpu_torch.io.fastg import fastg_to_node_fasta
 from palace_tpu_torch.io.paths_io import remove_duplicate_pairs
 from palace_tpu_torch.matching.solver import MatchingOptions, solve_graph_file
+from palace_tpu_torch.parallel.collectives import all_reduce_
+from palace_tpu_torch.parallel.mesh import Mesh
 from palace_tpu_torch.pipeline import external
 from palace_tpu_torch.pipeline.stages import Stage, StageRunner, file_exists_with_content
 from palace_tpu_torch.search.eref import run_search
@@ -81,12 +91,20 @@ class PalacePipeline:
         force: bool = False,
         scorer: Optional[Callable[[str, str], int]] = None,
         device: str = "cuda",
+        mesh: Optional[Mesh] = None,
     ):
         """``scorer(fasta, out)`` may be injected (tests, custom models);
         the default builds the full-size GCN from ``cfg.gcn_model``.
         ``device`` is resolved here: without a card, ``"cuda"`` raises
-        before any stage runs."""
-        self.device = resolve_device(device)
+        before any stage runs.  Under a ``mesh`` every rank builds and runs
+        the pipeline on ``mesh.device`` (``device`` is not read): the
+        scorer (the default one as ``score_fasta(mesh=...)``, an injected
+        one on every rank) and eref (``run_search(mesh=...)``) run on every
+        rank, each on rank 0's decision whether to skip it, and every other
+        stage on rank 0 alone."""
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.rank0 = mesh is None or mesh.rank == 0
         self.cfg = cfg
         self.runner = StageRunner(force=force)
         self.scorer = scorer
@@ -122,14 +140,43 @@ class PalacePipeline:
             params, fasta, out_path, config,
             batch_size=self.cfg.score.batch_size,
             dtype=resolve_dtype(self.cfg.score.dtype),
-            fuse_k=self.cfg.score.fuse_k, device=self.device,
+            fuse_k=self.cfg.score.fuse_k if self.mesh is None else 1,
+            device=self.device, mesh=self.mesh,
         )
 
     # ------------------------------------------------------------------
-    def _stage(self, name: str, fn, outputs, allow_empty: bool = False):
+    def _stage(self, name: str, fn, outputs, allow_empty: bool = False,
+               collective: bool = False):
         """Run one sub-step through the StageRunner — skip-if-exists when
-        ``force`` is off (palace:140-149), always re-run when on."""
-        return self.runner.run(Stage(name, fn, outputs, allow_empty))
+        ``force`` is off (palace:140-149), always re-run when on.  Under a
+        mesh a host stage runs on rank 0 alone; a ``collective`` stage runs
+        on every rank or on none, as rank 0 decides from the files it sees
+        (ranks that saw the file system at different moments would disagree,
+        and a rank left out of a collective hangs the others)."""
+        stage = Stage(name, fn, outputs, allow_empty)
+        if self.mesh is None:
+            return self.runner.run(stage)
+        if collective:
+            runs = self._rank0_says(self.runner.force or not stage.is_complete())
+            if runs and not self.rank0:
+                fn()
+        return self.runner.run(stage) if self.rank0 else None
+
+    def _rank0_says(self, flag: bool) -> bool:
+        """Rank 0's ``flag``, on every rank of the mesh."""
+        t = torch.tensor([int(flag and self.rank0)], device=self.device)
+        return bool(all_reduce_(t, self.mesh.group_all).item())
+
+    def _barrier(self) -> None:
+        """Every rank of the mesh waits for the others (nothing without one)."""
+        if self.mesh is not None and self.mesh.group_all is not None:
+            dist.barrier(group=self.mesh.group_all)
+
+    def _host(self, step) -> None:
+        """A host step: on rank 0 alone under a mesh, the others waiting."""
+        if self.rank0:
+            step()
+        self._barrier()
 
     def step1_qc(self) -> None:
         o1, o2 = self.out["filter_fastq1"], self.out["filter_fastq2"]
@@ -194,7 +241,8 @@ class PalacePipeline:
 
     def step3_search(self) -> None:
         search_dir = self.out_dir / "03-search"
-        search_dir.mkdir(parents=True, exist_ok=True)
+        if self.rank0:
+            search_dir.mkdir(parents=True, exist_ok=True)
         fasta = self.out["assembly_fasta"]
 
         self._stage(
@@ -208,18 +256,23 @@ class PalacePipeline:
             scorer = self.scorer or self._default_scorer
             scorer(str(fasta), str(self.out["node_score"]))
 
-        self._stage("score", _score, [self.out["node_score"]])
+        self._stage("score", _score, [self.out["node_score"]], collective=True)
+
+        def _index():
+            return load_or_build_index(self.cfg.phagedb, self.cfg.kmer.k,
+                                       self.cfg.kmer.coder_seed)
 
         def _eref() -> None:
-            index = load_or_build_index(
-                self.cfg.phagedb, self.cfg.kmer.k, self.cfg.kmer.coder_seed
-            )
+            # under a mesh rank 0 builds and saves the index before the
+            # others load it
+            index = _index() if self.rank0 else None
+            self._barrier()
             run_search(
-                self.out["filter_fastq1"], self.out["filter_fastq2"], index,
-                self.cfg.kmer, self.out["ref_names"], device=self.device,
+                self.out["filter_fastq1"], self.out["filter_fastq2"], index or _index(),
+                self.cfg.kmer, self.out["ref_names"], device=self.device, mesh=self.mesh,
             )
 
-        self._stage("eref", _eref, [self.out["ref_names"]])
+        self._stage("eref", _eref, [self.out["ref_names"]], collective=True)
 
         refs = self.out["phage_refs"]
 
@@ -626,24 +679,26 @@ class PalacePipeline:
         total = 6
         show_progress(1, total, "Quality Control")
         with StageTimer("step1.qc"):
-            self.step1_qc()
+            self._host(self.step1_qc)
         show_progress(2, total, "Assembly and Alignment")
         with StageTimer("step2.assembly"):
-            self.step2_assembly()
+            self._host(self.step2_assembly)
         show_progress(3, total, "Reference and Protein Search")
         with StageTimer("step3.search"):
             self.step3_search()
-        show_progress(4, total, "Graph Construction and Matching")
-        with StageTimer("step4.graph_match"):
-            s4 = self.step4_graph_match()
-        show_progress(5, total, "Further Assembly")
-        with StageTimer("step5.second_pass"):
-            self.step5_second_pass(s4)
-        show_progress(6, total, "Generating Final Results")
-        with StageTimer("step6.final"):
-            final = self.step6_final(s4)
-        self._report(final, time.perf_counter() - t0)
-        return final
+        if self.rank0:
+            show_progress(4, total, "Graph Construction and Matching")
+            with StageTimer("step4.graph_match"):
+                s4 = self.step4_graph_match()
+            show_progress(5, total, "Further Assembly")
+            with StageTimer("step5.second_pass"):
+                self.step5_second_pass(s4)
+            show_progress(6, total, "Generating Final Results")
+            with StageTimer("step6.final"):
+                final = self.step6_final(s4)
+            self._report(final, time.perf_counter() - t0)
+        self._barrier()
+        return self.out["final_fasta"]
 
     def _report(self, final_fa: Path, wall_s: float) -> None:
         """End-of-run summary (reference report, palace:893-918) plus a
@@ -668,8 +723,10 @@ class PalacePipeline:
 
 
 def run_pipeline(cfg: PalaceConfig, force: bool = False, scorer=None,
-                 device: str = "cuda") -> Path:
-    return PalacePipeline(cfg, force=force, scorer=scorer, device=device).run()
+                 device: str = "cuda", mesh: Optional[Mesh] = None) -> Path:
+    """The six steps to the final FASTA, whose path every rank returns once
+    it is written (``PalacePipeline``)."""
+    return PalacePipeline(cfg, force=force, scorer=scorer, device=device, mesh=mesh).run()
 
 
 def main(argv=None) -> int:

@@ -1,4 +1,5 @@
-"""k-mer reference search — the ``eref`` stage on one device.
+"""k-mer reference search — the ``eref`` stage, on one device or across a
+mesh of ranks.
 
 Pipeline stage 3.3 (palace:473-477): decide which phage reference
 genomes are present in the read set.
@@ -17,6 +18,14 @@ together in chunks of at most ``CHUNK_POS`` positions, each by one
 launch of ``kernels.scan_chunk`` (K4 fused with the unpack, hashing and
 lookup before it).
 
+Across devices (``mesh=``, ``parallel.mesh.make_mesh``) the table is a
+``ShardedCountTable``, split by hash range over the ranks, and Phase B
+scans each chunk on every rank against its own shard (``kernels.scan_hits``),
+ORs the ranks' hit bits with one all-reduce and windows them
+(``kernels.window_hits``); every rank gets the same hits, and rank 0 alone
+writes ``ref_names.txt``.  ``run_search_distributed`` also splits the
+reads: each rank reads its share of the FASTQ files.
+
 Down-sampling: the reference samples reads with C ``rand()`` seeded 1
 (:1238-1242, :374).  When the input is ≤ 2 Gbp the ratio is ≥100 and
 every read is used, the only regime where the reference is
@@ -27,7 +36,7 @@ from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +47,7 @@ from palace_tpu_torch.device import resolve_device
 from palace_tpu_torch.io import fastq_native
 from palace_tpu_torch.io.fasta import iter_fastq
 from palace_tpu_torch.ops import kernels
-from palace_tpu_torch.ops.count_table import CountTable
+from palace_tpu_torch.ops.count_table import CountTable, ShardedCountTable
 from palace_tpu_torch.ops.kmer import BASE_LUT, pack_codes_mask
 from palace_tpu_torch.ops.window import (
     RefHit,
@@ -47,6 +56,9 @@ from palace_tpu_torch.ops.window import (
     unpack_good,
     window_thresholds,
 )
+from palace_tpu_torch.parallel.collectives import TIMING, all_reduce_, gather_ragged
+from palace_tpu_torch.parallel.distributed import shard_inputs_for_process
+from palace_tpu_torch.parallel.mesh import Mesh
 from palace_tpu_torch.search.index import PhageIndex
 from palace_tpu_torch.utils.logging import get_logger
 from palace_tpu_torch.utils.timers import GLOBAL_METRICS
@@ -150,22 +162,56 @@ def read_code_batches(
         yield from _py_read_batches(fastq_path, batch, maxlen, ratio, k)
 
 
+def _timing() -> Tuple[float, int]:
+    return TIMING.seconds, TIMING.bytes
+
+
+def _record_collectives(stage: str, before: Tuple[float, int]) -> None:
+    """The collectives' seconds and bytes since ``before``, under ``stage``
+    in ``GLOBAL_METRICS``, when ``collectives.TIMING`` is on."""
+    if TIMING.enabled:
+        secs, nbytes = _timing()
+        GLOBAL_METRICS.record(stage, secs - before[0], items=nbytes - before[1], unit="bytes")
+
+
+def _count_done(table, t0: float, n_reads: int, before: Tuple[float, int]) -> None:
+    if table.device.type == "cuda":
+        torch.cuda.synchronize(table.device)
+    GLOBAL_METRICS.record("eref.count_reads", time.perf_counter() - t0,
+                          items=n_reads, unit="reads")
+    _record_collectives("eref.count_reads.collectives", before)
+
+
+def _row_len(params: KmerParams) -> int:
+    maxlen = max(ROW_LEN, params.k)
+    return maxlen + (-maxlen) % 8  # pack_codes_mask wants L % 8 == 0
+
+
 def count_reads_into_table(
     fastq_files: Sequence[str | Path],
     index: PhageIndex,
     params: KmerParams,
     device: str | torch.device = "cuda",
-) -> CountTable:
+    mesh: Optional[Mesh] = None,
+) -> CountTable | ShardedCountTable:
     """Phase A: count every k-mer of the reads into a new table on
-    ``device`` (the CUDA card unless ``device="cpu"``)."""
-    table = CountTable.create(params.k, params.least_depth, device=device)
+    ``device`` (the CUDA card unless ``device="cpu"``).  Under a ``mesh``
+    the table is a ``ShardedCountTable`` on ``mesh.device`` (``device`` is
+    not read): every rank reads the same files, the batch rounds up to a
+    multiple of the mesh's ranks, and each rank counts its block of every
+    batch."""
+    if mesh is None:
+        table = CountTable.create(params.k, params.least_depth, device=device)
+    else:
+        table = ShardedCountTable.create(mesh, params.k, params.least_depth)
     ratio = compute_downsample_ratio(fastq_files[0], params.down_sampling_size)
     logger.info("Down-sampling ratio is %d%%.", min(ratio, 100))
-    t0 = time.perf_counter()
+    t0, before = time.perf_counter(), _timing()
     n_reads = 0
-    maxlen = max(ROW_LEN, params.k)
-    maxlen += (-maxlen) % 8  # pack_codes_mask wants L % 8 == 0
+    maxlen = _row_len(params)
     batch = read_batch_size(table.device)
+    if mesh is not None:
+        batch = -(-batch // mesh.size) * mesh.size
     for fq in fastq_files:
         for codes in read_code_batches(fq, batch, maxlen, ratio, params.k):
             n_reads += codes.shape[0]
@@ -177,10 +223,7 @@ def count_reads_into_table(
             packed, mask = pack_codes_mask(codes)
             table.add_packed(torch.from_numpy(packed), torch.from_numpy(mask),
                              index.perm, params.k)
-    if table.device.type == "cuda":
-        torch.cuda.synchronize(table.device)
-    GLOBAL_METRICS.record("eref.count_reads", time.perf_counter() - t0,
-                          items=n_reads, unit="reads")
+    _count_done(table, t0, n_reads, before)
     return table
 
 
@@ -246,16 +289,22 @@ def chunk_inputs(db: DeviceDB, table: CountTable, target: int, refs: List[int], 
                                      db.index.k, target)
 
 
-def search_references(table: CountTable, index: PhageIndex, params: KmerParams) -> List[RefHit]:
+def search_references(table: CountTable | ShardedCountTable, index: PhageIndex,
+                      params: KmerParams) -> List[RefHit]:
     """Phase B on the table's device: scan every reference and return the
     hits in reference order.  Every chunk's offsets go to the device in
     one copy, and every chunk is launched before any result is fetched:
     ``kernels.scan_chunk`` under the profiler span ``eref.scan`` returns
-    its good flags packed 8 positions a byte.  ``GLOBAL_METRICS`` keeps
-    the host's three parts apart: the launches (``eref.scan_launch``),
-    the fetches, which wait for the card (``eref.scan_fetch``), and the
-    verdicts on the flags (``eref.verdicts``)."""
-    t0 = time.perf_counter()
+    its good flags packed 8 positions a byte.  On a ``ShardedCountTable``
+    (collective: every rank makes the same calls) each chunk is instead
+    ``kernels.scan_hits`` against the rank's shard, one uint8 all-reduce of
+    the hit bit-planes over the mesh (each bit has one owning rank, so the
+    sum is their OR), and ``kernels.window_hits``; every rank gets the same
+    hits.  ``GLOBAL_METRICS`` keeps the host's three parts apart: the
+    launches (``eref.scan_launch``), the fetches, which wait for the card
+    (``eref.scan_fetch``), and the verdicts on the flags
+    (``eref.verdicts``)."""
+    t0, before = time.perf_counter(), _timing()
     one_min, three_min = window_thresholds(params.window, params.hit_ratio,
                                            params.perfect_hit_ratio)
     db = DeviceDB(index, table.device)
@@ -264,11 +313,19 @@ def search_references(table: CountTable, index: PhageIndex, params: KmerParams) 
                           + [chunk_offsets(index, refs, rows) for _, refs, rows in chunks])
     offs = torch.from_numpy(offs).to(db.packed.device)
     launched, row0 = [], 0
+    sharded = isinstance(table, ShardedCountTable)
     for target, refs, rows in chunks:
         with record_function("eref.scan"):
-            bits = kernels.scan_chunk(db.packed, db.mask, offs[row0:row0 + rows], table.table,
-                                      index.perm, index.k, target, params.window, one_min,
-                                      three_min, params.least_depth)
+            if sharded:
+                planes = kernels.scan_hits(db.packed, db.mask, offs[row0:row0 + rows],
+                                           table.table, table.lo, index.perm, index.k, target,
+                                           params.least_depth)
+                bits = kernels.window_hits(all_reduce_(planes, table.mesh.group_all),
+                                           params.window, one_min, three_min)
+            else:
+                bits = kernels.scan_chunk(db.packed, db.mask, offs[row0:row0 + rows],
+                                          table.table, index.perm, index.k, target,
+                                          params.window, one_min, three_min, params.least_depth)
         launched.append((refs, bits))
         row0 += rows
     t1 = time.perf_counter()
@@ -292,6 +349,7 @@ def search_references(table: CountTable, index: PhageIndex, params: KmerParams) 
     GLOBAL_METRICS.record("eref.scan_fetch", fetch_s, items=positions, unit="positions")
     GLOBAL_METRICS.record("eref.verdicts", t2 - t1 - fetch_s, items=index.n_refs, unit="refs")
     GLOBAL_METRICS.record("eref.scan_refs", t2 - t0, items=index.n_refs, unit="refs")
+    _record_collectives("eref.scan_refs.collectives", before)
     return hits
 
 
@@ -310,12 +368,67 @@ def run_search(
     params: KmerParams,
     out_ref_names: str | Path,
     device: str | torch.device = "cuda",
+    mesh: Optional[Mesh] = None,
 ) -> List[RefHit]:
     """The eref stage: count the paired reads, scan the references and
-    write ``out_ref_names``, on the CUDA card unless ``device="cpu"``."""
-    dev = resolve_device(device)
-    table = count_reads_into_table([fastq1, fastq2], index, params, device=dev)
+    write ``out_ref_names``, on the CUDA card unless ``device="cpu"``.
+    Under a ``mesh`` (collective) every rank reads both files and counts
+    into the sharded table on ``mesh.device``, every rank returns the same
+    hits, and rank 0 alone writes the file."""
+    if mesh is None:
+        device = resolve_device(device)
+    table = count_reads_into_table([fastq1, fastq2], index, params, device=device, mesh=mesh)
     hits = search_references(table, index, params)
-    write_ref_names(out_ref_names, hits)
+    if mesh is None or mesh.rank == 0:
+        write_ref_names(out_ref_names, hits)
     logger.info("eref: %d references reported", len(hits))
+    return hits
+
+
+def run_search_distributed(
+    fastq_files: Sequence[str | Path],
+    index: PhageIndex,
+    params: KmerParams,
+    out_ref_names: str | Path,
+    mesh: Mesh,
+) -> List[RefHit]:
+    """The eref stage with the reads split over the ranks of ``mesh``
+    (collective): each rank reads its round-robin share of the FASTQ files
+    (``shard_inputs_for_process``) and counts its own batches into the
+    sharded table (``add_packed(..., local=True)``), so no rank reads every
+    file; Phase B as ``search_references``; rank 0 alone writes the file.
+
+    Every rank must make as many updates as the others, so the batch counts
+    are gathered and each rank pads up to the largest with all-pad batches
+    (code 4: every k-mer invalid, counted at slot 0, which no lookup
+    reads).  Each update's exchange sends its pair counts to the host, so
+    the ranks meet at every batch; that bounds their skew and the device
+    queue, as the JAX package's ``PALACE_DIST_SYNC_EVERY`` sync does every
+    few batches.  The down-sampling ratio comes from the first file, on
+    every rank, as in JAX."""
+    my_files = shard_inputs_for_process([str(f) for f in fastq_files], mesh.index, mesh.size)
+    ratio = compute_downsample_ratio(fastq_files[0], params.down_sampling_size)
+    logger.info("Down-sampling ratio is %d%%.", min(ratio, 100))
+    t0, before = time.perf_counter(), _timing()
+    table = ShardedCountTable.create(mesh, params.k, params.least_depth)
+    maxlen, batch = _row_len(params), read_batch_size(table.device)
+    local, n_reads = [], 0
+    for fq in my_files:
+        for codes in read_code_batches(fq, batch, maxlen, ratio, params.k):
+            n_reads += codes.shape[0]
+            if codes.shape[0] < batch:
+                codes = np.pad(codes, ((0, batch - codes.shape[0]), (0, 0)),
+                               constant_values=4)
+            local.append(pack_codes_mask(codes))
+    n_batches = gather_ragged(torch.tensor([len(local)], device=table.device), mesh)
+    pad = pack_codes_mask(np.full((batch, maxlen), 4, dtype=np.uint8))
+    local += [pad] * (int(n_batches.max()) - len(local))
+    for packed, mask in local:
+        table.add_packed(torch.from_numpy(packed), torch.from_numpy(mask), index.perm,
+                         params.k, local=True)
+    _count_done(table, t0, n_reads, before)
+    hits = search_references(table, index, params)
+    if mesh.rank == 0:
+        write_ref_names(out_ref_names, hits)
+    logger.info("eref (distributed): %d references reported", len(hits))
     return hits

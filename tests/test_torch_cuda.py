@@ -14,6 +14,8 @@ within ``CONV_LARGE_OUTPUTS``, the SAGE rounds where their intermediates
 reach 4..8 to their plain version within ``SAGE_LARGE_INTERMEDIATES``.
 Transition counts are integers and must be equal.  Without
 a card every test skips."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -449,6 +451,86 @@ def test_card_scan_chunk_raises_instead_of_falling_back(cuda, scan_tables, tmp_p
     with pytest.raises(ValueError):  # k > 32
         kernels.scan_chunk(packed, mask, offs, table, idx.perm, 33, target, 500, 450, 250)
     assert kernels.LAUNCHES["scan_chunk"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 20])
+@pytest.mark.parametrize("world", [1, 2, 3])
+@pytest.mark.parametrize("window", [1, 500, kernels.SCAN_TILE + 1])
+def test_card_scan_hits_and_window_hits_equal_plain(cuda, scan_tables, tmp_path, k, world,
+                                                    window):
+    """The sharded Phase B on the card: each rank's hit bit-planes against
+    its shard of a real table (4 GiB at k = 32, split as
+    ``ShardedCountTable`` splits it) equal to ``scan_hits_plain``, one
+    launch a call; ``window_hits`` of their sum equal to its plain version
+    and to ``scan_chunk`` on the whole table, with pad rows and edge rows."""
+    target = 12288  # one and a half tiles
+    idx, packed, mask, offs = _scan_world(tmp_path, k, target)
+    table = scan_tables[k]
+    size = -(-(1 << k) // world)
+    planes = []
+    for r in range(world):
+        shard = table[r * size:(r + 1) * size]
+        before = kernels.LAUNCHES["scan_hits"]
+        got = kernels.scan_hits(packed, mask, offs, shard, r * size, idx.perm, k, target)
+        want = kernels.scan_hits_plain(packed, mask, offs, shard, r * size, idx.perm, k, target)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["scan_hits"] == before + 1
+        assert got.shape == (offs.shape[0], 3, target // 8) and got.dtype == torch.uint8
+        assert torch.equal(got, want)
+        planes.append(got)
+    ored = torch.stack(planes).sum(dim=0, dtype=torch.uint8)
+    assert torch.equal(ored, functools.reduce(torch.bitwise_or, planes))  # one owner a bit
+    one_min, three_min = (1, 1) if window == 1 else (int(0.9 * window), int(0.5 * window))
+    before = kernels.LAUNCHES["window_hits"]
+    got = kernels.window_hits(ored, window, one_min, three_min)
+    want = kernels.window_hits_plain(ored, window, one_min, three_min)
+    whole = kernels.scan_chunk(packed, mask, offs, table, idx.perm, k, target, window, one_min,
+                               three_min, 3)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["window_hits"] == before + 1
+    assert torch.equal(got, want) and torch.equal(got, whole)
+    flags = np.unpackbits(got.cpu().numpy(), axis=1, bitorder="little")
+    assert 0 < flags[:4].mean() < 1 and not flags[-2:].any()
+
+
+@pytest.mark.cuda
+def test_card_scan_hits_and_window_hits_raise_instead_of_falling_back(cuda, scan_tables,
+                                                                      tmp_path):
+    target = 12288
+    idx, packed, mask, offs = _scan_world(tmp_path, 20, target)
+    shard = scan_tables[20][: 1 << 19]
+    before = {n: kernels.LAUNCHES[n] for n in ("scan_hits", "window_hits")}
+    for bad in ((packed, mask, offs, shard.cpu(), 0), (packed, mask, offs.cpu(), shard, 0),
+                (packed, mask, offs, shard, 1 << 20)):
+        with pytest.raises(ValueError):
+            kernels.scan_hits(*bad, idx.perm, 20, target)
+    planes = torch.zeros(2, 3, 64, dtype=torch.uint8, device=cuda)
+    for bad in (planes.int(), planes[:, :2]):
+        with pytest.raises(ValueError):
+            kernels.window_hits(bad, 50, 1, 1)
+    assert {n: kernels.LAUNCHES[n] for n in before} == before
+
+
+@pytest.mark.cuda
+def test_card_sharded_phase_b_of_one_rank_launches_scan_hits(cuda, tmp_path):
+    """eref under a mesh of one rank on the card: ``scan_hits`` and
+    ``window_hits`` once a chunk, no ``scan_chunk``, the CPU's hits."""
+    from palace_tpu_torch.config import KmerParams
+    from palace_tpu_torch.parallel import make_mesh
+    from palace_tpu_torch.search import eref, index
+
+    db, fq1, fq2 = chip_smoke.make_small_eref_world(tmp_path)
+    idx = index.build_index(db, k=20, save=False)
+    params = KmerParams(k=20)
+    want = eref.run_search(fq1, fq2, idx, params, tmp_path / "cpu.txt", device="cpu")
+    kernels.reset_launches()
+    got = eref.run_search(fq1, fq2, idx, params, tmp_path / "card.txt", mesh=make_mesh())
+    n_chunks = len(eref.plan_chunks(idx))
+    assert kernels.LAUNCHES["scan_hits"] == kernels.LAUNCHES["window_hits"] == n_chunks > 0
+    assert kernels.LAUNCHES["scan_chunk"] == 0
+    assert [h.line() for h in got] == [h.line() for h in want] and len(got) == 3
+    assert (tmp_path / "card.txt").read_bytes() == (tmp_path / "cpu.txt").read_bytes()
 
 
 @pytest.mark.cuda

@@ -15,6 +15,8 @@ import palace_tpu_torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
                     for p in (ROOT / "palace_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+#: what the spawned ranks of the port's multi-process tests import: no JAX
+RANK_FILES = ["tests/_torch_parallel_worker.py", "tests/_torch_eref_worker.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -41,7 +43,7 @@ def test_forbidden_name_check_sees_whole_module_names():
     assert not _forbidden("jaxtyping_like_name")
 
 
-@pytest.mark.parametrize("path", PORT_FILES)
+@pytest.mark.parametrize("path", PORT_FILES + RANK_FILES)
 def test_no_jax_or_palace_tpu_import(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     bad = [m for m in _imported_modules(tree) if _forbidden(m)]
