@@ -23,12 +23,15 @@ Phases, each of which must pass:
    phases must have taken their Python routes;
 2. the kernels, built from ``palace_tpu_torch/csrc`` with nvcc for sm_90a,
    with the registers, shared memory and spills ptxas reports, and K2's
-   and K3's dynamic shared memory and blocks an SM in bf16/f16;
+   (every dtype) and K3's (bf16/f16) dynamic shared memory and blocks an SM;
 3. each kernel at the main path's shapes against its plain PyTorch
    version on the same inputs (K1 equal; K2 and K3 within
    ``ops.compare.TOLERANCES``), in float32, bfloat16 and float16, with
    its time, its bound, the plain version's time and, for K3, cuDNN's,
-   cuBLAS's time for K2's largest product alone (bf16), and each of
+   cuBLAS's time for K2's largest product alone (bf16; float32 with TF32
+   off and on), K2 float32's three bounds (bytes, its 3×TF32 products,
+   all on the CUDA cores) and its error beside the CUDA-core route's it
+   replaced, and each of
    K3's three layers timed alone against its own bound; K3
    in bfloat16 and float16 where its outputs are large, against the
    float64 sums within ``ops.compare.CONV_LARGE_OUTPUTS`` (an einsum and
@@ -36,13 +39,14 @@ Phases, each of which must pass:
    (``make_assembly_contigs``: one 1 Mbp contig, a 50 kb (AT)n, 9 kb and
    100-N gaps, log-normal lengths), equal to its plain version, with the tiles
    it ran and its time with one block a row beside it; K1 on rows of
-   poly-A, (AT)n and (CAG)n beside random rows; K2 in bfloat16 and
+   poly-A, (AT)n and (CAG)n beside random rows; K2 in float32, bfloat16 and
    float16 at a batch of 512 N(0, 1) inputs whose intermediates reach
    4..8, within ``ops.compare.SAGE_LARGE_INTERMEDIATES``, the default
-   ``TOLERANCES`` counted beside it;
+   ``TOLERANCES`` counted beside it, and in float32 also against the
+   float64 sums (``sage_sums64``);
 4. the slice: ``score_sequences`` over 16 batches of 512 contigs in
-   bfloat16 with every launch counter reset just before and read just
-   after, and in float32; then one batch in float32 and in bfloat16
+   bfloat16, and in float32, each with every launch counter reset just
+   before and read just after; then one batch in float32 and in bfloat16
    against the plain versions on the card, and a few contigs against the
    plain path on the CPU;
 5. where the time goes: the host's step for a batch beside the 2-bit
@@ -150,7 +154,9 @@ Phases, each of which must pass:
    the final FASTA byte-identical to phase 15's, ``node_scores.out`` within
    2e-4 of it, K1-K3 and ``scan_hits``/``window_hits`` launched on both
    ranks, each step's seconds;
-23. a ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
+23. a ``kernels`` JSON line (each kernel at its main path's dtype, and K2's
+    float32 route, ``sage_rounds/float32``, with its launches from the
+    float32 slice), then, last, ``{"ok": true, "device": ...}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -201,6 +207,16 @@ GRAPH_SEED = 11
 # H100 SXM, dense, at its 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
+PEAK_TF32_OPS_PER_S = 495e12  # the tensor cores on TF32 operands (K2's float32 route)
+#: K2's float32 route before the tensor cores (the CUDA-core kernel that
+#: ``sage_tf32_kernel`` replaced) on the inputs that
+#: ``Smoke.kernels_at_main_shapes`` ("slice") and ``Smoke.sage_rounding``
+#: ("large") give it: max |error| against the plain version and against the
+#: float64 sums, from ``palace_tpu_torch/tools/k2_float32.py ab`` on that
+#: tree (H100 80GB HBM3, 700.00 W)
+CUDA_CORE_K2_FLOAT32_ERR = {
+    "slice": {"plain": 1.430511474609375e-06, "float64": 2.28129917623221e-06},
+    "large": {"plain": 1.430511474609375e-06, "float64": 2.007155865513255e-06}}
 
 KERNELS = {  # name → (CUDA source, the Pallas call it replaces)
     "transition_counts": ("palace_tpu_torch/csrc/transition_counts.cu",
@@ -354,6 +370,14 @@ def conv_smem_bytes(channels: int, in_channel_major: bool) -> int:
     return weights + tile + (channels * 136 * 2 if in_channel_major else tile)
 
 
+def sage_f32_smem_bytes() -> int:
+    """The float32 SAGE kernel's dynamic shared memory: the row's 4096 × 3
+    inputs, two 64-row tiles of big and small planes and one float32 tile,
+    each [row][channel + 8] of 32-bit words, 14 float rows of 128 and the
+    f-nodes' 64 × 3 inputs."""
+    return 4 * (4096 * 3 + 5 * 64 * (128 + 8) + 14 * 128 + 64 * 3)
+
+
 def sage_smem_bytes() -> int:
     """The 16-bit SAGE kernel's dynamic shared memory: a 128 × 128 weight
     and three 64-row tiles as [row][channel + 8], lift1 (64 × 128), all
@@ -411,6 +435,41 @@ def sage_peak(xp, xf, w) -> float:
     prod = xp1n @ Wr11
     out = torch.relu(lifted2[:, :, None] + prod.reshape(B, f, -1, w.shape[1]))
     return max(float(t.abs().max()) for t in (lifted1, xp1, xf1, xp1n, lifted2, prod, out))
+
+
+def sage_sums64(xp, xf, w) -> torch.Tensor:
+    """K2's function (``kernels.sage_rounds_plain``'s chain) with every
+    product, sum and LayerNorm in float64."""
+    from palace_tpu_torch.ops import kernels
+
+    xp, xf, w = xp.double(), xf.double(), w.double()
+    B, pn, d3 = xp.shape
+    f = xf.shape[1]
+    rep = pn // f
+    Wr1, Wl1, Wr2f, Wl2, Wl11, Wr11, b1, b2, b11, ln_s, ln_b = kernels._unstack(w, d3)
+
+    def ln(x):
+        mu = x.mean(-1, keepdim=True)
+        return (x - mu) / torch.sqrt(((x - mu) ** 2).mean(-1, keepdim=True) + 1e-5) * ln_s + ln_b
+
+    x_p1 = torch.relu((xf @ Wl1 + b1).repeat_interleave(rep, dim=1) + xp @ Wr1)
+    x_f1 = torch.relu(x_p1.reshape(B, rep, f, -1).mean(dim=1) @ Wl2 + b2 + xf @ Wr2f)
+    lifted2 = ln(x_f1) @ Wl11 + b11
+    return torch.relu(lifted2.repeat_interleave(rep, dim=1) + ln(x_p1) @ Wr11)
+
+
+def sage_f32_bounds(x_p, x_f, w, out) -> dict:
+    """K2's float32 bounds in ms: the bytes (inputs read and output written
+    once), the 3×TF32 route's 128-deep products (three times their
+    operations at the TF32 rate), and all the operations on the CUDA cores
+    at the float32 rate."""
+    B, pn, d3 = x_p.shape
+    f, gd = x_f.shape[1], w.shape[1]
+    deep = 2.0 * B * gd * (2 * f * gd + pn * gd)
+    ops = deep + 2.0 * B * gd * (pn * d3 + 2 * f * d3)
+    return dict(bytes=nbytes(x_p, x_f, w, out) / HBM_BYTES_PER_S * 1e3,
+                tf32=3 * deep / PEAK_TF32_OPS_PER_S * 1e3,
+                cuda_cores=ops / PEAK_OPS_PER_S[torch.float32] * 1e3)
 
 
 def conv_sums(x, weights, biases, acc_dtype):
@@ -1485,7 +1544,8 @@ class Smoke:
                 say(f"  {_build.KERNELS[name][0]} {line}")
         self.check(_build.kernels_built(), "every kernel built for sm_90a")
         say(f"  sage_rounds bf16/f16 dynamic shared memory (csrc/sage_rounds.cu's layout): "
-            f"{sage_smem_bytes()} B, 2 blocks an SM")
+            f"{sage_smem_bytes()} B, 2 blocks an SM; float32 (sage_tf32_kernel) "
+            f"{sage_f32_smem_bytes()} B, 1 block an SM")
         say("  conv_head bf16/f16 dynamic shared memory (csrc/conv_head.cu's layout): "
             + ", ".join(f"C={c} {LAYOUT[cm]} input {conv_smem_bytes(c, cm)} B, "
                         f"{1 if c == 128 else 2} block(s) an SM"
@@ -1535,13 +1595,34 @@ class Smoke:
                 ms=cuda_ms(lambda: kernels.sage_rounds(x_p, x_f, w), 10),
                 plain_ms=cuda_ms(lambda: kernels.sage_rounds_plain(x_p, x_f, w), 3),
                 bound=bound(nbytes(x_p, x_f, w, got), ops, dt), library_ms=None)
+            # not K2's function: one of its products, which the port never
+            # calls, timed as a yardstick for the kernel's tensor-core part
+            a, wr11 = got.reshape(B * pn, gd), w[3 * d3 + 2 * gd:3 * d3 + 3 * gd]
             if dt == torch.bfloat16:
-                # not K2's function: one of its products, which the port never
-                # calls, timed as a yardstick for the kernel's tensor-core part
-                a, wr11 = got.reshape(B * pn, gd), w[3 * d3 + 2 * gd:3 * d3 + 3 * gd]
                 ms = cuda_ms(lambda: torch.matmul(a, wr11), 10)
                 say(f"  cuBLAS torch.matmul {tuple(a.shape)} x {tuple(wr11.shape)} bfloat16, "
                     f"K2's pass-B product alone (not K2's function): {ms:.4f} ms")
+            if dt == torch.float32:
+                yard = {}
+                for tf32 in (False, True):
+                    torch.backends.cuda.matmul.allow_tf32 = tf32
+                    yard[tf32] = cuda_ms(lambda: torch.matmul(a, wr11), 10)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                bounds = sage_f32_bounds(x_p, x_f, w, got)
+                sage_rec.update(bounds=bounds, cublas_ms=yard[False], cublas_tf32_ms=yard[True],
+                                bound=(max(bounds["tf32"], bounds["bytes"]),
+                                       "operations" if bounds["tf32"] >= bounds["bytes"]
+                                       else "bytes"))
+                say(f"  cuBLAS torch.matmul {tuple(a.shape)} x {tuple(wr11.shape)} float32, "
+                    f"K2's pass-B product alone (not K2's function): TF32 off {yard[False]:.4f} "
+                    f"ms, TF32 on {yard[True]:.4f} ms (one TF32 product)")
+                share = f"{100 * bounds['tf32'] / sage_rec['ms']:.1f}%" if sage_rec["ms"] else "-"
+                say(f"  K2 float32 (3xTF32) {sage_rec['ms']:.4f} ms; bounds: bytes "
+                    f"{bounds['bytes']:.4f} ms, 3xTF32 {bounds['tf32']:.4f} ms (read against "
+                    f"this: {share}), all on the CUDA "
+                    f"cores {bounds['cuda_cores']:.4f} ms; max |error| against the plain "
+                    f"version {res['max_abs_err']:.4g} (the CUDA-core route it replaced, on "
+                    f"these inputs: {CUDA_CORE_K2_FLOAT32_ERR['slice']['plain']:.4g})")
 
             # K3, on K2's output in the raw channel-scramble view
             x = got.reshape(B, gd, pn)
@@ -1688,11 +1769,13 @@ class Smoke:
     def sage_rounding(self):
         """K2 where its rounded intermediates reach 4..8, against its plain
         version within ``compare.SAGE_LARGE_INTERMEDIATES``, one ulp at
-        that magnitude; the default ``TOLERANCES`` counted beside it."""
+        that magnitude; the default ``TOLERANCES`` counted beside it.  In
+        float32 (the tolerance is the default's, no steps) also against the
+        float64 sums (``sage_sums64``), the plain version counted beside it."""
         from palace_tpu_torch.ops import kernels
         from palace_tpu_torch.ops.compare import SAGE_LARGE_INTERMEDIATES, TOLERANCES, compare
 
-        for dt in (torch.bfloat16, torch.float16):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
             xp, xf, w = large_sage_inputs(SAGE_ROUNDING_BATCH, dt, self.dev)
             peak = sage_peak(xp, xf, w)
             got, want = kernels.sage_rounds(xp, xf, w), kernels.sage_rounds_plain(xp, xf, w)
@@ -1706,6 +1789,19 @@ class Smoke:
                                       f"({peak:.3f})")
             self.check(res["4..8"]["ok"], f"K2 {DT_NAME[dt]} within "
                                           f"{SAGE_LARGE_INTERMEDIATES[dt]}: {res['4..8']}")
+            if dt == torch.float32:
+                exact = sage_sums64(xp, xf, w)
+                vs64 = {name: compare(y, exact, TOLERANCES[dt])
+                        for name, y in (("kernel", got), ("plain", want))}
+                del exact
+                say("  K2 float32 against the float64 sums: " + "; ".join(
+                    f"{name} {r['steps']} elements beyond {TOLERANCES[dt].tol}, max |error| "
+                    f"{r['max_abs_err']:.6g}" for name, r in vs64.items())
+                    + " (the CUDA-core route it replaced, on these inputs: plain "
+                    f"{CUDA_CORE_K2_FLOAT32_ERR['large']['plain']:.6g}, float64 "
+                    f"{CUDA_CORE_K2_FLOAT32_ERR['large']['float64']:.6g})")
+                self.records["sage_rounding_float32"] = dict(
+                    plain=res["default"], float64=vs64["kernel"], plain_float64=vs64["plain"])
             del got, want
 
     # -- phase 4 -----------------------------------------------------------
@@ -1745,13 +1841,22 @@ class Smoke:
         # float32, the configurations' default dtype (no cast)
         score_sequences(params, contigs[:BATCH], batch_size=BATCH, device=dev)
         torch.cuda.synchronize()
+        kernels.reset_launches()
         t0 = time.perf_counter()
-        score_sequences(params, contigs, batch_size=BATCH, device=dev)
+        scores = score_sequences(params, contigs, batch_size=BATCH, device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
         say(f"  float32: {len(contigs)} contigs in {secs:.3f} s, "
-            f"{len(contigs) / secs:.1f} contigs/s")
-        self.records["slice_float32"] = dict(contigs_per_s=len(contigs) / secs, seconds=secs)
+            f"{len(contigs) / secs:.1f} contigs/s, launches {launches}")
+        self.records["slice_float32"] = dict(contigs_per_s=len(contigs) / secs, seconds=secs,
+                                             launches=launches)
+        for name in SCORING_KERNELS:
+            self.check(launches[name] > 0,
+                       f"main path in float32 launched {name} ({launches[name]} times)")
+        probs = np.array([p for _, p in scores])
+        self.check(bool(np.isfinite(probs).all()) and len(scores) == len(contigs),
+                   f"{len(scores)} float32 probabilities, finite")
 
     def where_the_time_goes(self, params, contigs, n_batches: int = 4):
         """The host's step for one batch (``_host_batch``: the byte batch in
@@ -3347,8 +3452,11 @@ def main() -> int:
                     good_windows=smoke.records["per_reference"]["launches"]["good_windows"],
                     scan_hits=smoke.records["eref_mesh"]["launches"]["scan_hits"],
                     window_hits=smoke.records["eref_mesh"]["launches"]["window_hits"])
+    # and K2's float32 route, the pipeline's default dtype, in the float32 slice
+    launches["sage_rounds/float32"] = smoke.records["slice_float32"]["launches"]["sage_rounds"]
     rows = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in dict(
+            KERNELS, **{"sage_rounds/float32": KERNELS["sage_rounds"]}).items():
         rec = smoke.records[name]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": rec["max_abs_err"],

@@ -1,7 +1,8 @@
-// Tensor-core building blocks shared by the 16-bit kernels (K2, K3):
-// mma.sync m16n8k16 with float32 accumulators, ldmatrix / stmatrix between
-// shared memory and the mma fragments, cp.async copies, and packing of
-// float32 values into 16-bit pairs.
+// Tensor-core building blocks shared by the kernels (K2, K3): mma.sync
+// m16n8k16 (bf16, f16) and m16n8k8 (TF32) with float32 accumulators, the
+// TF32 rounding, ldmatrix / stmatrix between shared memory and the 16-bit
+// mma fragments, cp.async copies, and packing of float32 values into
+// 16-bit pairs.
 #pragma once
 
 #include "common.cuh"
@@ -33,6 +34,26 @@ template <> struct MmaType<__half> {
           "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
   }
 };
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero; the result is a float32 bit pattern whose low 13 bits are 0
+__device__ __forceinline__ uint32_t cvt_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d = a·b + d, m16n8k8 with TF32 operands (cvt_tf32) and float32
+// accumulators.  Lane (g, q) = (lane / 4, lane % 4) holds a[0..3] = A[g][q],
+// A[g + 8][q], A[g][q + 4], A[g + 8][q + 4]; b0 = B[q][g], b1 = B[q + 4][g];
+// d[0..3] = D[g][2q], D[g][2q + 1], D[g + 8][2q], D[g + 8][2q + 1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);

@@ -223,8 +223,11 @@ def sage_rounds(x_p: torch.Tensor, x_f: torch.Tensor, w: torch.Tensor) -> torch.
     statistics are float32 (eps 1e-5).
 
     Replaces ``gcn_sage_pallas`` (palace_tpu/ops/pallas_kernels.py).
-    Bound on the H100: bytes — the (B, 4096, 128) output, about 537 MB
-    per batch of 512 in bf16, 0.164 ms at 3.35 TB/s.  Design: a row's
+    Bound on the H100, a batch of 512: in bf16, bytes — the (B, 4096, 128)
+    output, about 537 MB, 0.164 ms at 3.35 TB/s.  In float32, the 3×TF32
+    products — 3 × 70.9 GFLOP at TF32's 495 TFLOP/s, 0.43 ms — above the
+    bytes (1.07 GB out, 0.33 ms); all 72.5 GFLOP on the CUDA cores would
+    take 1.083 ms at 67 TFLOP/s.  Design: a row's
     activations (1 MiB in bf16) do not fit in a block's shared memory as
     they fit in the TPU's VMEM, so one block per batch row runs two passes
     that recompute the cheap round-1 activations (input width 3) instead
@@ -238,9 +241,17 @@ def sage_rounds(x_p: torch.Tensor, x_f: torch.Tensor, w: torch.Tensor) -> torch.
     share an SM, so that one block's elementwise work and syncs overlap
     the other's products and stores; the epilogue is staged through
     shared memory and leaves in 16-byte stores, every output sector
-    written whole.  float32 runs its products on the CUDA cores, where
-    TF32 would break its 1e-4 tolerance.  The CUDA kernel takes the
-    published widths (f = 64, gd = 128).  One launch a call.
+    written whole.  float32 runs the same products on the tensor cores
+    through a 3×TF32 split: one TF32 product (10 mantissa bits) would
+    break float32's 1e-4 tolerance, so each operand is split into big =
+    tf32(x) and small = tf32(x - big), and each 8-deep step adds
+    small·big, big·small and big·big (``mma.sync`` m16n8k8) into one
+    float32 chain, within 7e-6 of float32 products on an H100 80GB HBM3 at
+    700.00 W.  A tile is split once, as it is stored; the weights'
+    fragments stay split in registers; one block an SM stages its row's
+    inputs in shared memory and fills one tile while it multiplies the
+    other.  The CUDA kernel takes the published widths (f = 64, gd =
+    128).  One launch a call.
     """
     if not _same_device("sage_rounds", x_p, x_f, w):
         return sage_rounds_plain(x_p, x_f, w)
@@ -253,8 +264,9 @@ def sage_rounds(x_p: torch.Tensor, x_f: torch.Tensor, w: torch.Tensor) -> torch.
              and w.shape == (sage_stack_rows(d3, gd), gd),
              "sage_rounds: the CUDA kernel takes pn=4096, f=64, d3=3, gd=128")
     x_p, x_f, w = x_p.contiguous(), x_f.contiguous(), w.contiguous()
-    if w.data_ptr() % 16:  # the kernel copies weight rows 16 bytes at a time
-        w = w.clone()
+    # the kernels copy weight rows (the float32 one also a row's x_p) 16 bytes at a time
+    w = w.clone() if w.data_ptr() % 16 else w
+    x_p = x_p.clone() if x_p.data_ptr() % 16 else x_p
     out = torch.empty(B, pn, gd, dtype=dt, device=x_p.device)
     if B == 0:
         return out

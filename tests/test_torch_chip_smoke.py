@@ -191,15 +191,20 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
     smoke = chip_smoke.Smoke("cpu")
     chip_smoke.run_phases(smoke)
     chip_smoke.run_eref_phases(smoke)
-    assert smoke.failures[:3] == [f"main path launched {name} (0 times)"
+    assert smoke.failures[:6] == [f"main path{dt} launched {name} (0 times)"
+                                  for dt in ("", " in float32")
                                   for name in chip_smoke.SCORING_KERNELS]
-    assert len(smoke.failures) == 5
-    assert smoke.failures[3].startswith("eref main path launched scan_chunk once a chunk (0 ")
-    assert smoke.failures[4].startswith("per-reference path launched good_windows once a "
+    assert len(smoke.failures) == 8
+    assert smoke.failures[6].startswith("eref main path launched scan_chunk once a chunk (0 ")
+    assert smoke.failures[7].startswith("per-reference path launched good_windows once a "
                                         "reference (0 ")
     assert {"transition_counts", "sage_rounds", "conv_head", "slice", "eref",
             "good_windows", "scan_chunk", "per_reference", "transition_counts_assembly",
-            "slice_float32", "host_step", "transition_counts_low_complexity"} <= set(smoke.records)
+            "slice_float32", "host_step", "transition_counts_low_complexity",
+            "sage_rounds/float32", "sage_rounding_float32"} <= set(smoke.records)
+    f32 = smoke.records["sage_rounds/float32"]
+    assert f32["bound"] == (f32["bounds"]["tf32"], "operations")
+    assert smoke.records["sage_rounding_float32"]["float64"]["steps"] == 0
     assert smoke.records["slice_err_float32"] <= chip_smoke.PROB_ATOL
     assert smoke.records["eref"]["n_hits"] == 1 and smoke.records["good_windows"]["chunks"] >= 2
     assert smoke.records["per_reference"]["n_hits"] == 1

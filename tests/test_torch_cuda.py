@@ -166,7 +166,11 @@ def test_card_transition_features_of_no_rows_launch_nothing(cuda):
 @pytest.mark.parametrize("B", [1, 4, 133])
 def test_card_sage_rounds_close_to_plain(cuda, dtype, B):
     """One row; four; and 133, one row past a full wave of 132 blocks, so
-    the ragged last wave and two blocks an SM (16-bit) both run."""
+    the ragged last wave and two blocks an SM (16-bit) both run.
+    float32 is the 3×TF32 route, held to 1e-4 with no steps; the plain
+    version's products run in full float32, with
+    ``torch.backends.cuda.matmul.allow_tf32`` False."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cpu").manual_seed(3)
     p = tgcn.init_params(g)
     p["ln.scale"] = 1 + 0.2 * torch.randn(128, generator=g)
@@ -184,11 +188,15 @@ def test_card_sage_rounds_close_to_plain(cuda, dtype, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_card_sage_rounds_where_intermediates_reach_4_to_8(cuda, dtype):
     """The previous test's inputs at a batch of 512: round 1's activations
     and their LayerNorm reach 4..8, where a rounding step is one ulp of
-    that magnitude, 2^-8 in float16 (``SAGE_LARGE_INTERMEDIATES``)."""
+    that magnitude, 2^-8 in float16 (``SAGE_LARGE_INTERMEDIATES``).
+    float32 is held to the default 1e-4 with no steps, against a plain
+    version whose products run with ``torch.backends.cuda.matmul.allow_tf32``
+    False."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     xp, xf, w = chip_smoke.large_sage_inputs(chip_smoke.SAGE_ROUNDING_BATCH, dtype, cuda)
     assert 4 <= chip_smoke.sage_peak(xp, xf, w) < 8
     res = compare(kernels.sage_rounds(xp, xf, w), kernels.sage_rounds_plain(xp, xf, w),
