@@ -22,8 +22,9 @@ Phases, each of which must pass:
    ``native: unavailable (<compiler message>)``, in which case the host
    phases must have taken their Python routes;
 2. the kernels, built from ``palace_tpu_torch/csrc`` with nvcc for sm_90a,
-   with the registers, shared memory and spills ptxas reports, and K2's
-   (every dtype) and K3's (bf16/f16) dynamic shared memory and blocks an SM;
+   with the registers, shared memory and spills ptxas reports (none in K3's
+   float32 ``conv_tf32_kernel``), and K2's and K3's dynamic shared memory
+   and blocks an SM in every dtype;
 3. each kernel at the main path's shapes against its plain PyTorch
    version on the same inputs (K1 equal; K2 and K3 within
    ``ops.compare.TOLERANCES``), in float32, bfloat16 and float16, with
@@ -31,11 +32,16 @@ Phases, each of which must pass:
    cuBLAS's time for K2's largest product alone (bf16; float32 with TF32
    off and on), K2 float32's three bounds (bytes, its 3×TF32 products,
    all on the CUDA cores) and its error beside the CUDA-core route's it
-   replaced, and each of
+   replaced, K3 float32's three bounds (its 3×TF32 products, all on the
+   CUDA cores, bytes) and cuDNN float32 with TF32 off and on, and each of
    K3's three layers timed alone against its own bound; K3
-   in bfloat16 and float16 where its outputs are large, against the
-   float64 sums within ``ops.compare.CONV_LARGE_OUTPUTS`` (an einsum and
-   cuDNN counted beside it); K1 on a batch of an assembly's lengths
+   in float32, bfloat16 and float16 where its outputs are large, against
+   the float64 sums within ``ops.compare.CONV_LARGE_OUTPUTS`` (an einsum
+   and cuDNN counted beside it, and one mma chain a tile, which must fall
+   outside: in float32 the 3×TF32 chain of ``tests/_tf32.py``, with one
+   TF32 product counted too); K3 at the ragged shapes of the card tests
+   (``RAGGED_CONV_SHAPES``) against its plain version in every dtype; K1
+   on a batch of an assembly's lengths
    (``make_assembly_contigs``: one 1 Mbp contig, a 50 kb (AT)n, 9 kb and
    100-N gaps, log-normal lengths), equal to its plain version, with the tiles
    it ran and its time with one block a row beside it; K1 on rows of
@@ -154,9 +160,10 @@ Phases, each of which must pass:
    the final FASTA byte-identical to phase 15's, ``node_scores.out`` within
    2e-4 of it, K1-K3 and ``scan_hits``/``window_hits`` launched on both
    ranks, each step's seconds;
-23. a ``kernels`` JSON line (each kernel at its main path's dtype, and K2's
-    float32 route, ``sage_rounds/float32``, with its launches from the
-    float32 slice), then, last, ``{"ok": true, "device": ...}``.
+23. a ``kernels`` JSON line (each kernel at its main path's dtype, and the
+    float32 routes of K2 and K3, ``sage_rounds/float32`` and
+    ``conv_head/float32``, with their launches from the float32 slice),
+    then, last, ``{"ok": true, "device": ...}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -198,6 +205,10 @@ SMALL_K = 20            # the small world run on the card and on the CPU
 #: and N(0, 0.1) weights put them near 40, beyond the magnitudes
 #: ops.compare.TOLERANCES is stated for (ops.compare.CONV_LARGE_OUTPUTS)
 ROUNDING_SHAPE = (3, 128, 4096)
+#: the conv head's ragged shapes (tests/test_torch_cuda.py
+#: test_card_conv_head_close_to_plain): L_out not a multiple of any tile and
+#: rows not 16-byte aligned; the smallest, L_out = 1; a first layer of 64
+RAGGED_CONV_SHAPES = ((2, 128, 300), (1, 128, 22), (1, 64, 1000))
 PROFILE_CHUNKS = 4      # Phase B chunks under the profiler
 # the graph path's world (make_graph_world): a virome sample's assembly
 GRAPH_CONTIGS = 5000
@@ -207,7 +218,7 @@ GRAPH_SEED = 11
 # H100 SXM, dense, at its 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
-PEAK_TF32_OPS_PER_S = 495e12  # the tensor cores on TF32 operands (K2's float32 route)
+PEAK_TF32_OPS_PER_S = 495e12  # the tensor cores on TF32 operands (K2's, K3's float32 routes)
 #: K2's float32 route before the tensor cores (the CUDA-core kernel that
 #: ``sage_tf32_kernel`` replaced) on the inputs that
 #: ``Smoke.kernels_at_main_shapes`` ("slice") and ``Smoke.sage_rounding``
@@ -263,6 +274,14 @@ def bound(nbytes: int, ops: float, dtype: torch.dtype) -> tuple:
     operations over the peak rate of their type, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tf32_bound(nbytes: int, ops: float) -> tuple:
+    """``bound`` for a 3×TF32 route: its products, three times the
+    operations, at the TF32 rate, or the bytes, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * ops / PEAK_TF32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -370,6 +389,14 @@ def conv_smem_bytes(channels: int, in_channel_major: bool) -> int:
     return weights + tile + (channels * 136 * 2 if in_channel_major else tile)
 
 
+def conv_f32_smem_bytes() -> int:
+    """The float32 conv kernel's dynamic shared memory: two ring stages,
+    each a slice's weights (8 taps × 2 k8 steps × 64 outputs × 8 channels,
+    big and small) and 264 input rows of 32 words, then the next slice's
+    input as copied, 16 channels × 264 floats."""
+    return 4 * (2 * (2 * 8 * 2 * 64 * 8 + 264 * 32) + 16 * 264)
+
+
 def sage_f32_smem_bytes() -> int:
     """The float32 SAGE kernel's dynamic shared memory: the row's 4096 × 3
     inputs, two 64-row tiles of big and small planes and one float32 tile,
@@ -384,6 +411,20 @@ def sage_smem_bytes() -> int:
     16-bit; 14 float rows of 128 and the f-nodes' 64 × 3 float inputs."""
     pitch = 128 + 8
     return 2 * (128 * pitch + 3 * 64 * pitch + 64 * 128) + 4 * (14 * 128 + 64 * 3)
+
+
+def init_scale_conv_inputs(shape, dtype, device):
+    """The conv head's input at the scale ``init_params`` gives its
+    weights, U(±1/sqrt(C·8)), where the outputs stay of order 1: N(0, 1)
+    activations, from seed 4."""
+    B, C0, L = shape
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(0, 1, (B, C0, L)).astype(np.float32)).to(device, dtype)
+    ws = [torch.from_numpy(rng.uniform(-1, 1, (64, c, 8)).astype(np.float32) / np.sqrt(c * 8))
+          .to(device, dtype) for c in (C0, 64, 64)]
+    bs = [torch.from_numpy(rng.uniform(-1, 1, 64).astype(np.float32) / np.sqrt(c * 8))
+          .to(device, dtype) for c in (C0, 64, 64)]
+    return x, ws, bs
 
 
 def large_conv_inputs(shape, dtype, device):
@@ -470,6 +511,36 @@ def sage_f32_bounds(x_p, x_f, w, out) -> dict:
     return dict(bytes=nbytes(x_p, x_f, w, out) / HBM_BYTES_PER_S * 1e3,
                 tf32=3 * deep / PEAK_TF32_OPS_PER_S * 1e3,
                 cuda_cores=ops / PEAK_OPS_PER_S[torch.float32] * 1e3)
+
+
+def conv_f32_bounds(x, weights, biases, y) -> dict:
+    """K3's float32 bounds in ms: the 3×TF32 route's products (three times
+    the operations at the TF32 rate), all the operations on the CUDA cores
+    at the float32 rate, the function's bytes (input, weights and biases
+    read, output written once) and the bytes of its three launches (each
+    layer's input and weights read and output written once)."""
+    B, L, ops, layers, x_bytes = x.shape[0], x.shape[2], 0.0, nbytes(*weights, *biases), nbytes(x)
+    for w in weights:
+        L -= w.shape[2] - 1
+        ops += 2.0 * B * w.shape[0] * w.shape[1] * w.shape[2] * L
+        out_bytes = B * w.shape[0] * L * x.element_size()
+        layers, x_bytes = layers + x_bytes + out_bytes, out_bytes
+    return dict(tf32=3 * ops / PEAK_TF32_OPS_PER_S * 1e3,
+                cuda_cores=ops / PEAK_OPS_PER_S[torch.float32] * 1e3,
+                bytes=nbytes(x, *weights, *biases, y) / HBM_BYTES_PER_S * 1e3,
+                layer_bytes=layers / HBM_BYTES_PER_S * 1e3)
+
+
+def tf32_emulation():
+    """``tests/_tf32.py``: the 3×TF32 arithmetic of the kernels' float32
+    routes emulated in plain torch (the conv head's one chain a tile and
+    one TF32 product are the controls of ``Smoke.conv_rounding``)."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import _tf32
+
+    return _tf32
 
 
 def conv_sums(x, weights, biases, acc_dtype):
@@ -1549,7 +1620,13 @@ class Smoke:
         say("  conv_head bf16/f16 dynamic shared memory (csrc/conv_head.cu's layout): "
             + ", ".join(f"C={c} {LAYOUT[cm]} input {conv_smem_bytes(c, cm)} B, "
                         f"{1 if c == 128 else 2} block(s) an SM"
-                        for c, cm in ((128, True), (64, True), (64, False))))
+                        for c, cm in ((128, True), (64, True), (64, False)))
+            + f"; float32 (conv_tf32_kernel) {conv_f32_smem_bytes()} B, 1 block an SM")
+        tf32 = [line for line in ptxas_summary(_build.PTXAS_LOG["conv_head"])
+                if line.startswith("conv_tf32_kernel") and "spill" in line]
+        self.check(len(tf32) == 1 and re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                                                tf32[0]) is not None,
+                   f"conv_tf32_kernel (K3 float32) spills nothing: {tf32}")
 
     # -- phase 3 -----------------------------------------------------------
     def kernels_at_main_shapes(self, params, contigs):
@@ -1650,6 +1727,20 @@ class Smoke:
                 plain_ms=cuda_ms(lambda: kernels.conv_head_plain(x, cw, cb), 3),
                 bound=bound(nbytes(x, *cw, *cb, y), ops, dt),
                 library_ms=cuda_ms(cudnn, 5), layers=self.conv_layers(x, cw, cb, dt))
+            if dt == torch.float32:  # read against the 3×TF32 products, as K2's float32 row
+                torch.backends.cudnn.allow_tf32 = True
+                conv_rec["library_tf32_ms"] = cuda_ms(cudnn, 5)
+                torch.backends.cudnn.allow_tf32 = False
+                bounds = conv_f32_bounds(x, cw, cb, y)
+                conv_rec.update(bounds=bounds, bound=tf32_bound(nbytes(x, *cw, *cb, y), ops))
+                ms = conv_rec["ms"]
+                share = f"{100 * bounds['tf32'] / ms:.1f}%" if ms else "-"
+                say(f"  K3 float32 (3xTF32) {ms:.4f} ms; bounds: 3xTF32 {bounds['tf32']:.4f} ms "
+                    f"(read against this: {share}), all on the CUDA cores "
+                    f"{bounds['cuda_cores']:.4f} ms, bytes {bounds['bytes']:.4f} ms (the three "
+                    f"launches' {bounds['layer_bytes']:.4f} ms); cuDNN float32 TF32 off "
+                    f"{conv_rec['library_ms']:.4f} ms, TF32 allowed "
+                    f"{conv_rec['library_tf32_ms']:.4f} ms (not float32's function)")
             for name, rec in (("sage_rounds", sage_rec), ("conv_head", conv_rec)):
                 self.records[name if dt == torch.bfloat16 else f"{name}/{DT_NAME[dt]}"] = rec
             del got, x, y
@@ -1721,7 +1812,8 @@ class Smoke:
 
     def conv_layers(self, x, cw, cb, dt) -> list:
         """Each layer of K3 alone, in the layouts ``conv_head`` runs it
-        (``kernels.conv_layouts``), with its own bound."""
+        (``kernels.conv_layouts``), with its own bound: in float32 its
+        3×TF32 products' (``tf32_bound``), all on the CUDA cores beside it."""
         from palace_tpu_torch.ops import kernels
 
         out = []
@@ -1733,11 +1825,19 @@ class Smoke:
             n_out = y.shape[2] if out_cm else y.shape[1]
             ops = 2.0 * x.shape[0] * w.shape[0] * w.shape[1] * w.shape[2] * n_out
             ms = cuda_ms(run, 5)
-            b_ms, by = bound(nbytes(x, w, b, y), ops, dt)
+            rec = {}
+            if dt == torch.float32:
+                rec["cuda_cores_ms"] = ops / PEAK_OPS_PER_S[dt] * 1e3
+                b_ms, by = tf32_bound(nbytes(x, w, b, y), ops)
+                by_what = f"{by}, 3xTF32; all on the CUDA cores {rec['cuda_cores_ms']:.4f} ms"
+            else:
+                b_ms, by = bound(nbytes(x, w, b, y), ops, dt)
+                by_what = by
             rate = f"{ops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f}% of the bound" if ms else ""
             say(f"    K3 layer {i + 1} {DT_NAME[dt]} {w.shape[1]}->{w.shape[0]} "
-                f"{LAYOUT[in_cm]}->{LAYOUT[out_cm]}: {ms:.4f} ms, bound {b_ms:.4f} ms ({by}) {rate}")
-            out.append(dict(ms=ms, bound_ms=b_ms, bound_by=by))
+                f"{LAYOUT[in_cm]}->{LAYOUT[out_cm]}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({by_what}) {rate}")
+            out.append(dict(ms=ms, bound_ms=b_ms, bound_by=by, **rec))
             x = y
         return out
 
@@ -1745,26 +1845,54 @@ class Smoke:
         """K3 where its outputs are large, against the float64 sums, within
         ``compare.CONV_LARGE_OUTPUTS``; a float32 einsum over the taps, the
         plain version (cuDNN in float32) and one mma chain a tile counted
-        beside it, the last of which must fall outside."""
+        beside it, the last of which must fall outside: in bf16/f16 the chain
+        of 16-deep products, in float32 the 3×TF32 chain (``tests/_tf32.py``),
+        with one TF32 product counted too."""
         from palace_tpu_torch.ops import kernels
         from palace_tpu_torch.ops.compare import CONV_LARGE_OUTPUTS, compare
 
-        for dt in (torch.bfloat16, torch.float16):
+        tf32 = tf32_emulation()
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
             x, ws, bs = large_conv_inputs(ROUNDING_SHAPE, dt, self.dev)
             exact, tol = conv_sums(x, ws, bs, torch.float64), CONV_LARGE_OUTPUTS[dt]
-            res = {name: compare(y, exact, tol) for name, y in (
-                ("kernel", kernels.conv_head(x, ws, bs)),
-                ("float32 einsum", conv_sums(x, ws, bs, torch.float32)),
-                ("plain (cuDNN float32)", kernels.conv_head_plain(x, ws, bs)),
-                ("one mma chain a tile", one_mma_chain(x, ws, bs)))}
+            ys = [("kernel", lambda: kernels.conv_head(x, ws, bs)),
+                  ("float32 einsum", lambda: conv_sums(x, ws, bs, torch.float32)),
+                  ("plain (cuDNN float32)", lambda: kernels.conv_head_plain(x, ws, bs))]
+            if dt == torch.float32:
+                chain = "one 3xTF32 chain a tile"
+                ys += [(chain, lambda: tf32.conv_tf32(x, ws, bs, chain_per_slice=False)),
+                       ("one TF32 product", lambda: tf32.conv_tf32(x, ws, bs, tf32.ONE_TF32))]
+            else:
+                chain = "one mma chain a tile"
+                ys.append((chain, lambda: one_mma_chain(x, ws, bs)))
+            res = {name: compare(y(), exact, tol) for name, y in ys}
             say(f"  K3 {DT_NAME[dt]} at {ROUNDING_SHAPE}, outputs up to "
                 f"{float(exact.float().abs().max()):.1f}; against float64, elements beyond "
                 f"{tol.tol} (rounding steps) and max |error|: " + "; ".join(
                     f"{name} {r['steps']}, {r['max_abs_err']:.4g}" for name, r in res.items()))
             self.check(res["kernel"]["ok"], f"K3 {DT_NAME[dt]} at large outputs within {tol} "
                        f"of float64: {res['kernel']}")
-            self.check(not res["one mma chain a tile"]["ok"],
-                       f"one mma chain a tile falls outside it: {res['one mma chain a tile']}")
+            self.check(not res[chain]["ok"], f"{chain} falls outside it: {res[chain]}")
+            if dt == torch.float32:
+                self.records["conv_rounding_float32"] = res
+
+    def conv_ragged(self):
+        """K3 at ``RAGGED_CONV_SHAPES`` against its plain version within
+        ``TOLERANCES``, in every dtype, three launches a head."""
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.ops.compare import TOLERANCES, compare
+
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            for shape in RAGGED_CONV_SHAPES:
+                x, ws, bs = init_scale_conv_inputs(shape, dt, self.dev)
+                before = kernels.LAUNCHES["conv_head"]
+                got = kernels.conv_head(x, ws, bs)
+                launched = kernels.LAUNCHES["conv_head"] - before
+                res = compare(got, kernels.conv_head_plain(x, ws, bs), TOLERANCES[dt])
+                self.check(res["ok"] and got.shape == (shape[0], 64, shape[2] - 21)
+                           and launched == (3 if self.dev.type == "cuda" else 0),
+                           f"K3 {DT_NAME[dt]} at {shape} within {TOLERANCES[dt]} of its plain "
+                           f"version ({launched} launches): {res}")
 
     def sage_rounding(self):
         """K2 where its rounded intermediates reach 4..8, against its plain
@@ -3376,6 +3504,7 @@ def run_phases(smoke: Smoke) -> None:
         smoke.phase("K1 on an assembly's lengths", smoke.k1_on_assembly_lengths)
         smoke.phase("K1 on low-complexity rows", smoke.k1_low_complexity)
         smoke.phase("K3 where its outputs are large", smoke.conv_rounding)
+        smoke.phase("K3 at ragged shapes", smoke.conv_ragged)
         smoke.phase("K2 where its intermediates reach 4..8", smoke.sage_rounding)
         smoke.phase("slice", smoke.slice, params, contigs)
         smoke.phase("where the time goes", smoke.where_the_time_goes, params, contigs)
@@ -3452,11 +3581,13 @@ def main() -> int:
                     good_windows=smoke.records["per_reference"]["launches"]["good_windows"],
                     scan_hits=smoke.records["eref_mesh"]["launches"]["scan_hits"],
                     window_hits=smoke.records["eref_mesh"]["launches"]["window_hits"])
-    # and K2's float32 route, the pipeline's default dtype, in the float32 slice
-    launches["sage_rounds/float32"] = smoke.records["slice_float32"]["launches"]["sage_rounds"]
+    # and the float32 routes of K2 and K3, the pipeline's default dtype, in the
+    # float32 slice
+    f32 = {f"{k}/float32": KERNELS[k] for k in ("sage_rounds", "conv_head")}
+    for name in f32:
+        launches[name] = smoke.records["slice_float32"]["launches"][name.split("/")[0]]
     rows = []
-    for name, (source, replaces) in dict(
-            KERNELS, **{"sage_rounds/float32": KERNELS["sage_rounds"]}).items():
+    for name, (source, replaces) in dict(KERNELS, **f32).items():
         rec = smoke.records[name]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": rec["max_abs_err"],

@@ -1,8 +1,8 @@
 // Tensor-core building blocks shared by the kernels (K2, K3): mma.sync
 // m16n8k16 (bf16, f16) and m16n8k8 (TF32) with float32 accumulators, the
-// TF32 rounding, ldmatrix / stmatrix between shared memory and the 16-bit
-// mma fragments, cp.async copies, and packing of float32 values into
-// 16-bit pairs.
+// TF32 rounding and the 3×TF32 split, ldmatrix / stmatrix between shared
+// memory and the 16-bit mma fragments, cp.async copies, and packing of
+// float32 values into 16-bit pairs.
 #pragma once
 
 #include "common.cuh"
@@ -43,6 +43,13 @@ __device__ __forceinline__ uint32_t cvt_tf32(float x) {
   return r;
 }
 
+// x = big + small + r: big is x rounded to TF32, small the rest rounded to
+// TF32, |r| <= 2^-22 |x| (the 3×TF32 split of the float32 routes)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = cvt_tf32(x);
+  small = cvt_tf32(x - __uint_as_float(big));
+}
+
 // d = a·b + d, m16n8k8 with TF32 operands (cvt_tf32) and float32
 // accumulators.  Lane (g, q) = (lane / 4, lane % 4) holds a[0..3] = A[g][q],
 // A[g + 8][q], A[g][q + 4], A[g + 8][q + 4]; b0 = B[q][g], b1 = B[q + 4][g];
@@ -76,6 +83,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
 // 16 bytes global → shared; src_bytes = 0 writes zeros and reads nothing
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global → shared; src_bytes = 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
                : "memory");
 }

@@ -420,13 +420,6 @@ struct SmemF32 {
 };
 static_assert(sizeof(SmemF32) % 16 == 0 && sizeof(SmemF32) <= 232448, "one block an SM");
 
-// x = big + small + r: big is x rounded to TF32, small the rest rounded to
-// TF32, |r| <= 2^-22 |x|
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = cvt_tf32(x);
-  small = cvt_tf32(x - __uint_as_float(big));
-}
-
 // channels c .. c+3 of row r of a tile, split
 __device__ __forceinline__ void store_split4(Planes& p, int r, int c, const float v[4]) {
   uint4 b, l;

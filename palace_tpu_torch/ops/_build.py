@@ -41,7 +41,7 @@ KERNELS = {
     "sage_rounds": ("sage_rounds.cu", "palace_sage_rounds",
                     [_P, _P, _P, _P, _I, _I, _P]),
     "conv_head": ("conv_head.cu", "palace_conv_layer",
-                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "good_windows": ("good_windows.cu", "palace_good_windows",
                      [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "scan_chunk": ("good_windows.cu", "palace_scan_chunk",

@@ -343,21 +343,24 @@ def conv_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if dt == torch.float32:
         _require(in_channel_major and out_channel_major and C % 16 == 0,
                  "conv_head: the float32 kernel takes channel-major layers, C % 16 == 0")
-        wk = w.permute(1, 2, 0).contiguous()  # (C, K, O): one load per tap
+        # work: the launch splits the weight into its TF32 planes there, on the card
+        wk, work = w.contiguous(), torch.empty(2 * w.numel(), dtype=torch.int32,
+                                               device=x.device)
     else:
         _require((in_channel_major and not out_channel_major and C in (64, 128))
                  or (not in_channel_major and C == 64),
                  "conv_head: the 16-bit kernel takes the layers of conv_layouts: a first "
                  "layer of 128 or 64 channels, then 64")
-        wk = conv_taps(w)
+        wk, work = conv_taps(w), None
     L_out = L - CONV_TAPS + 1
     shape = (B, CONV_OUT, L_out) if out_channel_major else (B, L_out, CONV_OUT)
     out = torch.empty(shape, dtype=dt, device=x.device)
     if B:
         x = x.contiguous()
         err = _build.entry("conv_head")(
-            x.data_ptr(), wk.data_ptr(), b.contiguous().data_ptr(), out.data_ptr(), B, C, L,
-            _DTYPE_CODES[dt], int(in_channel_major), int(out_channel_major), _stream(x))
+            x.data_ptr(), wk.data_ptr(), b.contiguous().data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), B, C, L, _DTYPE_CODES[dt],
+            int(in_channel_major), int(out_channel_major), _stream(x))
         LAUNCHES["conv_head"] += 1
         _build.check("conv_head", err)
     return out
@@ -388,10 +391,25 @@ def conv_head(x: torch.Tensor, weights: Sequence[torch.Tensor],
     (``conv_layouts``).  An mma rounds its sum toward zero, so each
     16-channel slice's 8 taps are a chain of their own, added to the
     float32 accumulators with round-to-nearest: that keeps large outputs
-    within ``compare.CONV_LARGE_OUTPUTS`` of the float64 sums.  float32
-    runs on the CUDA cores, where
-    TF32 would break its 1e-4 tolerance.  Each layer is one launch, and
-    counts as one.
+    within ``compare.CONV_LARGE_OUTPUTS`` of the float64 sums.
+
+    float32, the pipeline's default dtype, runs the same products on the
+    tensor cores through a 3×TF32 split (``mma.sync`` m16n8k8 on TF32
+    operands): one TF32 product would break float32's 1e-4 tolerance, so
+    each operand is split into big = tf32(x) and small = tf32(x - big), and
+    each 8-deep step adds small·big, big·small and big·big.  Its bounds, a
+    batch of 512: the 3×TF32 products, 3 × 548 GFLOP at TF32's 495 TFLOP/s,
+    3.32 ms, which its share is read against; all 548 GFLOP on the CUDA
+    cores at 67 TFLOP/s, 8.18 ms; bytes, about 1.12 ms with the
+    intermediates written and read back.  A 16-channel slice's 48 mma are
+    one chain, added with round-to-nearest as in 16 bits: one chain over a
+    whole tile drifts past 1e-4 where outputs reach 40
+    (``tests/test_torch_conv_tf32.py``).  The weights are split once a call
+    on the card, by a small kernel of the same launch, into planes that
+    persistent blocks stream a slice at a time through a two-stage ring;
+    the input is split once as a block stores its tile into shared memory.
+    Every float32 layer stays channel-major.  Each layer is one launch (in
+    float32, the split and the layer), and counts as one.
     """
     if not _same_device("conv_head", x, *weights, *biases):
         return conv_head_plain(x, weights, biases)

@@ -42,6 +42,29 @@ def test_bound_takes_the_larger_of_bytes_and_operations():
     assert by == "operations" and ms == pytest.approx(1.0)
 
 
+def test_tf32_bound_takes_three_times_the_operations_at_the_tf32_rate():
+    ms, by = chip_smoke.tf32_bound(1e6, 165e9)
+    assert by == "operations" and ms == pytest.approx(1.0)
+    ms, by = chip_smoke.tf32_bound(3.35e9, 1e9)
+    assert by == "bytes" and ms == pytest.approx(1.0)
+
+
+def test_conv_f32_bounds_at_the_main_shape():
+    """K3 float32 at a batch of 512 × 4096 positions: 548 GFLOP, 3.32 ms
+    as 3×TF32 products, 8.18 ms on the CUDA cores; bytes 0.48 ms for the
+    function and 1.12 ms for its three launches."""
+    meta = dict(device="meta", dtype=torch.float32)
+    x, y = torch.empty(512, 128, 4096, **meta), torch.empty(512, 64, 4075, **meta)
+    ws = [torch.empty(64, c, 8, **meta) for c in (128, 64, 64)]
+    bs = [torch.empty(64, **meta) for _ in range(3)]
+    b = chip_smoke.conv_f32_bounds(x, ws, bs, y)
+    assert b["tf32"] == pytest.approx(3.32, abs=0.005)
+    assert b["cuda_cores"] == pytest.approx(8.18, abs=0.005)
+    assert b["bytes"] == pytest.approx(0.48, abs=0.005)
+    assert b["layer_bytes"] == pytest.approx(1.12, abs=0.005)
+    assert chip_smoke.conv_f32_smem_bytes() == 215_552
+
+
 def test_ptxas_summary_names_each_entry_by_dtype():
     log = "\n".join([
         "ptxas info    : Compiling entry function '_Z6kernelI13__nv_bfloat16EvPKT_' for 'sm_90a'",
@@ -204,6 +227,12 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
             "sage_rounds/float32", "sage_rounding_float32"} <= set(smoke.records)
     f32 = smoke.records["sage_rounds/float32"]
     assert f32["bound"] == (f32["bounds"]["tf32"], "operations")
+    k3 = smoke.records["conv_head/float32"]
+    assert k3["bound"][1] == "operations" and k3["bound"][0] == pytest.approx(k3["bounds"]["tf32"])
+    assert {"library_tf32_ms", "layers"} <= set(k3)
+    rounding = smoke.records["conv_rounding_float32"]
+    assert rounding["kernel"]["ok"] and rounding["plain (cuDNN float32)"]["ok"]
+    assert not rounding["one 3xTF32 chain a tile"]["ok"] and not rounding["one TF32 product"]["ok"]
     assert smoke.records["sage_rounding_float32"]["float64"]["steps"] == 0
     assert smoke.records["slice_err_float32"] <= chip_smoke.PROB_ATOL
     assert smoke.records["eref"]["n_hits"] == 1 and smoke.records["good_windows"]["chunks"] >= 2

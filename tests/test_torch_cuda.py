@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import chip_smoke
+from _tf32 import conv_tf32
 from palace_tpu_torch.models import gcn as tgcn
 from palace_tpu_torch.ops import kernels
 from palace_tpu_torch.ops.compare import (CONV_LARGE_OUTPUTS, SAGE_LARGE_INTERMEDIATES,
@@ -206,21 +207,16 @@ def test_card_sage_rounds_where_intermediates_reach_4_to_8(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,C0,L", [(3, 128, 4096), (2, 128, 300), (1, 128, 22), (1, 64, 1000)])
+@pytest.mark.parametrize("B,C0,L", [(3, 128, 4096), *chip_smoke.RAGGED_CONV_SHAPES])
 def test_card_conv_head_close_to_plain(cuda, dtype, B, C0, L):
-    """The main shape; a ragged one (L_out not a multiple of the 128-position
-    tile, rows not 16-byte aligned); the smallest (L_out = 1); and a first
-    layer of 64 channels.
+    """The main shape; a ragged one (L_out not a multiple of the 128- or
+    256-position tile, rows not 16-byte aligned); the smallest (L_out = 1);
+    and a first layer of 64 channels (``chip_smoke.py`` runs the same).
 
     Weights and biases are drawn at the scale ``init_params`` gives them,
     U(±1/sqrt(C·8)), so the layers' outputs stay of order 1, the magnitude
     ``TOLERANCES`` is stated for.  Larger outputs are the next test's."""
-    rng = np.random.default_rng(4)
-    x = torch.from_numpy(rng.normal(0, 1, (B, C0, L)).astype(np.float32)).to(cuda, dtype)
-    ws = [torch.from_numpy(rng.uniform(-1, 1, (64, c, 8)).astype(np.float32) / np.sqrt(c * 8))
-          .to(cuda, dtype) for c in (C0, 64, 64)]
-    bs = [torch.from_numpy(rng.uniform(-1, 1, 64).astype(np.float32) / np.sqrt(c * 8))
-          .to(cuda, dtype) for c in (C0, 64, 64)]
+    x, ws, bs = chip_smoke.init_scale_conv_inputs((B, C0, L), dtype, cuda)
     before = kernels.LAUNCHES["conv_head"]
     got = kernels.conv_head(x, ws, bs)
     want = kernels.conv_head_plain(x, ws, bs)
@@ -238,7 +234,8 @@ def test_card_conv_head_large_outputs_within_budget_of_float64(cuda, dtype):
     orders round some outputs apart, cuDNN's included.  The kernel and the
     plain version are held to the float64 sums within
     ``CONV_LARGE_OUTPUTS``; one mma chain a tile, rounding toward zero,
-    falls outside it."""
+    falls outside it: in 16 bits the chain of 16-deep products, in float32
+    the 3×TF32 chain (``tests/_tf32.py``)."""
     x, ws, bs = chip_smoke.large_conv_inputs((3, 128, 4096), dtype, cuda)
     exact, tol = chip_smoke.conv_sums(x, ws, bs, torch.float64), CONV_LARGE_OUTPUTS[dtype]
     assert float(exact.float().abs().max()) > 30
@@ -246,9 +243,10 @@ def test_card_conv_head_large_outputs_within_budget_of_float64(cuda, dtype):
     assert got["ok"], got
     plain = compare(kernels.conv_head_plain(x, ws, bs), exact, tol)
     assert plain["ok"], plain
-    if dtype != torch.float32:
-        control = compare(chip_smoke.one_mma_chain(x, ws, bs), exact, tol)
-        assert not control["ok"], control
+    one_chain = (conv_tf32(x, ws, bs, chain_per_slice=False) if dtype == torch.float32
+                 else chip_smoke.one_mma_chain(x, ws, bs))
+    control = compare(one_chain, exact, tol)
+    assert not control["ok"], control
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
 """The arithmetic of K2's float32 route on the CPU: the 3×TF32 split of
 ``palace_tpu_torch/csrc/sage_rounds.cu`` (``sage_tf32_kernel``), emulated
-here and dropped into a copy of ``kernels.sage_rounds_plain``'s chain, held
-at full width to ``gcn_sage_pallas`` in interpret mode at float32's 1e-4
-(absolute and relative, no steps), as ``tests/test_torch_kernels.py`` holds
-the plain version.  One TF32 product on the same inputs falls outside it,
-so the test tells the two apart.
+(``tests/_tf32.py``) and dropped into a copy of
+``kernels.sage_rounds_plain``'s chain, held at full width to
+``gcn_sage_pallas`` in interpret mode at float32's 1e-4 (absolute and
+relative, no steps), as ``tests/test_torch_kernels.py`` holds the plain
+version.  One TF32 product on the same inputs falls outside it, so the test
+tells the two apart.
 
 The emulation follows the kernel: each float32 operand x is split into
 big = tf32(x) and small = tf32(x - big), TF32 being x rounded to 10
@@ -23,49 +24,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _tf32 import ONE_TF32, THREE_TF32, split_tf32, tf32, tf32_product, toward_zero
 
 from palace_tpu.models import gcn as jgcn
 from palace_tpu.ops.pallas_kernels import gcn_sage_pallas
 from palace_tpu_torch.models import gcn as tgcn
 from palace_tpu_torch.ops import kernels
 from palace_tpu_torch.ops.compare import TOLERANCES, compare
-
-#: the kernel's three mma a k8 step, in its order: (A part, B part)
-THREE_TF32 = (("small", "big"), ("big", "small"), ("big", "big"))
-#: one TF32 product: each operand rounded to TF32 once
-ONE_TF32 = (("big", "big"),)
-
-
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """float32 → TF32 in a float32 pattern (the low 13 bits 0), to nearest
-    with ties away from zero: half a TF32 ulp added to the magnitude, then
-    cut."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split_tf32(x: torch.Tensor) -> dict:
-    big = tf32(x)
-    return {"big": big, "small": tf32(x - big)}
-
-
-def toward_zero(s: torch.Tensor) -> torch.Tensor:
-    """float64 → float32, rounded toward zero."""
-    f = s.float()
-    return torch.where(f.double().abs() > s.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
-
-
-def tf32_product(a: torch.Tensor, b: torch.Tensor, terms) -> torch.Tensor:
-    """a (..., K) · b (K, N) as the kernel's mma chain: for each k8 step,
-    each (A part, B part) of ``terms`` added into the float32 accumulator
-    as one mma."""
-    pa, pb = split_tf32(a), split_tf32(b)
-    acc = torch.zeros(*a.shape[:-1], b.shape[1], dtype=torch.float32)
-    for k0 in range(0, a.shape[-1], 8):
-        ks = slice(k0, k0 + 8)
-        for ta, tb in terms:
-            acc = toward_zero(acc.double() + pa[ta][..., ks].double() @ pb[tb][ks].double())
-    return acc
 
 
 def sage_rounds_emulated(x_p, x_f, w, terms) -> torch.Tensor:
