@@ -23,8 +23,9 @@ Phases, each of which must pass:
    phases must have taken their Python routes;
 2. the kernels, built from ``palace_tpu_torch/csrc`` with nvcc for sm_90a,
    with the registers, shared memory and spills ptxas reports (none in K3's
-   float32 ``conv_tf32_kernel``), and K2's and K3's dynamic shared memory
-   and blocks an SM in every dtype;
+   float32 ``conv_tf32_kernel`` and in K4's sharded entries,
+   ``SHARDED_ENTRIES``), and K2's and K3's dynamic shared memory and blocks
+   an SM in every dtype;
 3. each kernel at the main path's shapes against its plain PyTorch
    version on the same inputs (K1 equal; K2 and K3 within
    ``ops.compare.TOLERANCES``), in float32, bfloat16 and float16, with
@@ -146,14 +147,20 @@ Phases, each of which must pass:
    (``split_reads``); ``run_search(mesh=...)`` with the launch counters
    reset just before and read just after: phase 7's 67 hits and
    ``ref_names.txt``, ``scan_hits`` and ``window_hits`` once a chunk,
-   ``scan_chunk`` never; then both against their plain versions on the
-   chunks of phase 8, ``window_hits`` against ``scan_chunk``, each timed
-   beside ``scan_chunk`` with its bound;
+   ``hit_filter`` once, ``scan_chunk`` never; then ``hit_filter`` of the
+   rank's shard against its plain version, timed with its bound and the
+   share of its bits set; ``scan_hits`` and ``window_hits`` against their
+   plain versions on the chunks of phase 8, ``window_hits`` against
+   ``scan_chunk``, each timed beside ``scan_chunk`` with its bound; and
+   ``scan_hits`` at the shard ranges of 2 and 4 ranks (rank 0's and the
+   last rank's share, ``SHARD_WORLDS``), equal to its plain version, each
+   timed against the bound of its own reads;
 21. eref across devices, two ranks sharing the card under gloo at
    (data, model) = (2, 1): ``run_search(mesh=...)`` and
    ``run_search_distributed`` on every rank, phase 7's hits, each rank's
    shard equal to its block of a one-device table, ``ref_names.txt``
-   written by rank 0 alone, ``scan_hits``/``window_hits`` launched; Phase A
+   written by rank 0 alone, ``scan_hits``/``window_hits`` launched once a
+   chunk and ``hit_filter`` once; Phase A
    and B seconds, the collectives' ms and bytes, each rank's peak memory;
 22. the pipeline across devices: ``run_pipeline(cfg, mesh=...)`` on a copy
    of phase 14's world, two ranks sharing the card under gloo at (2, 1):
@@ -244,6 +251,8 @@ KERNELS = {  # name → (CUDA source, the Pallas call it replaces)
                   "palace_tpu/ops/pallas_kernels.py:252"),
     "window_hits": ("palace_tpu_torch/csrc/good_windows.cu",
                     "palace_tpu/ops/pallas_kernels.py:252"),
+    "hit_filter": ("palace_tpu_torch/csrc/good_windows.cu",
+                   "palace_tpu/ops/pallas_kernels.py:252"),
 }
 SCORING_KERNELS = ("transition_counts", "sage_rounds", "conv_head")
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.float16: "float16"}
@@ -1430,14 +1439,45 @@ def split_reads(fq: Path) -> list:
     return pair
 
 
-def scan_hits_bound(positions: int, rows: int, reads: int) -> tuple:
-    """scan_hits' bound: 0.375 B a position in (codes and invalid bits),
-    24 B of offsets a row and 0.375 B a position of hit bits out, plus the
-    floor of its in-range table reads, a 32-byte sector each (no cache holds
-    a 2^k-byte table); ``SCAN_HITS_OPS`` a position at the float32 rate,
-    the data sheet having no int32 rate."""
-    return bound(2 * (positions * 3 // 8) + 24 * rows + 32 * reads,
+def scan_hits_bound(positions: int, rows: int, fbits: int, shard_reads: int) -> tuple:
+    """scan_hits' bound, what its design must move through device memory:
+    0.375 B a position in (codes and invalid bits), 24 B of offsets a row,
+    0.375 B a position of hit bits out, the 2^fbits-bit hit filter read
+    once, and a 32-byte sector for each shard read behind a set filter bit;
+    ``SCAN_HITS_OPS`` a position at the float32 rate, the data sheet having
+    no int32 rate.  The filter's probes, one for each in-range hash, are
+    served by the L2 and are a term of their own (``probe_reads``), which
+    the data sheet gives no rate to bound."""
+    return bound(2 * (positions * 3 // 8) + 24 * rows + (1 << fbits) // 8 + 32 * shard_reads,
                  SCAN_HITS_OPS * positions, torch.float32)
+
+
+def probe_reads(h: torch.Tensor, lo: int, size: int, filt) -> tuple:
+    """(filter probes, shard reads) that scan_hits makes for the hashes
+    ``h`` against the shard ``[lo, lo + size)`` and its hit filter ``filt``:
+    a probe for each hash not 0 in the range, a shard read for each probe
+    whose bit is set."""
+    mine = (h != 0) & (h >= lo) & (h < lo + size)
+    bit = (h[mine] - lo) & ((1 << filt.fbits) - 1)
+    return int(mine.sum()), int(((filt.words[bit >> 5] >> (bit & 31)) & 1).sum())
+
+
+#: the mesh sizes whose shard ranges phase 20 times scan_hits at
+SHARD_WORLDS = (1, 2, 4)
+#: K4's sharded Phase B in csrc/good_windows.cu, whose ptxas lines phase 2 checks
+SHARDED_ENTRIES = ("hit_filter_kernel", "scan_hits_kernel", "window_hits_kernel")
+
+
+def shard_shares(n: int) -> list:
+    """(world, rank, lo, size) of rank 0's and the last rank's share of
+    ``n`` hashes at each of ``SHARD_WORLDS``, split as
+    ``count_table.ShardedCountTable`` splits them."""
+    out = []
+    for world in SHARD_WORLDS:
+        size = -(-n // world)
+        for rank in sorted({0, world - 1}):
+            out.append((world, rank, rank * size, min(size, n - rank * size)))
+    return out
 
 
 def window_hits_bound(positions: int) -> tuple:
@@ -1627,6 +1667,11 @@ class Smoke:
         self.check(len(tf32) == 1 and re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
                                                 tf32[0]) is not None,
                    f"conv_tf32_kernel (K3 float32) spills nothing: {tf32}")
+        sharded = [line for line in ptxas_summary(_build.PTXAS_LOG["scan_hits"])
+                   if line.split(":")[0] in SHARDED_ENTRIES and "spill" in line]
+        self.check(len(sharded) == len(SHARDED_ENTRIES) and all(
+            re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line) for line in sharded),
+                   f"K4's sharded entries spill nothing: {sharded}")
 
     # -- phase 3 -----------------------------------------------------------
     def kernels_at_main_shapes(self, params, contigs):
@@ -3222,10 +3267,11 @@ class Smoke:
                        f"one rank: {len(hits)} hits ({EREF_JAX_HITS} from the JAX package), "
                        f"ref_names.txt byte-identical to phase 7's")
             self.check(launches["scan_hits"] == launches["window_hits"] == n_chunks
-                       and launches["scan_chunk"] == 0,
+                       and launches["scan_chunk"] == 0 and launches["hit_filter"] == 1,
                        f"one rank: launched scan_hits and window_hits once a chunk and "
                        f"scan_chunk never ({launches['scan_hits']}, {launches['window_hits']}, "
-                       f"{launches['scan_chunk']}; {n_chunks} chunks)")
+                       f"{launches['scan_chunk']}; {n_chunks} chunks), hit_filter once a Phase B "
+                       f"({launches['hit_filter']})")
             self.records["eref_mesh"] = dict(seconds=secs, launches=launches, peak_bytes=peak)
             table = count_reads_into_table(fqs, index, params, mesh=mesh)
             self.sharded_kernels(index, table)
@@ -3238,9 +3284,10 @@ class Smoke:
         ``window_hits`` of one rank's planes against ``scan_chunk`` on the
         same table; the device time of each kernel on those chunks
         (torch.profiler, and CUDA events around the wrappers, whose offsets
-        check synchronizes), its bound and its plain version's time."""
-        from torch.profiler import ProfilerActivity, profile
-
+        check synchronizes), its bound and its plain version's time; then
+        ``scan_hits`` at the shard ranges of 2 and 4 ranks (``SHARD_WORLDS``,
+        rank 0's and the last rank's share, each a slice of the table), equal
+        to its plain version, timed against the bound of its own reads."""
         from palace_tpu_torch.config import KmerParams
         from palace_tpu_torch.ops import kernels
         from palace_tpu_torch.ops.window import window_thresholds
@@ -3251,21 +3298,25 @@ class Smoke:
                                                  params.perfect_hit_ratio))
         db, picked = DeviceDB(index, self.dev), picked_chunks(plan_chunks(index))
         scan = (index.perm, index.k)
+        shares = shard_shares(1 << index.k)
+        filt = self.hit_filter_phase(table.table, params.least_depth)
+        share_filt = {s: kernels.hit_filter(table.table[s[2] - table.lo:s[2] - table.lo + s[3]],
+                                            params.least_depth) for s in shares if s[0] > 1}
         calls = []
         for target, refs, rows in picked:
             offs = torch.from_numpy(chunk_offsets(index, refs, rows)).to(self.dev)
             args = (db.packed, db.mask, offs, table.table, table.lo, *scan, target,
                     params.least_depth)
-            planes = kernels.scan_hits(*args)
+            planes = kernels.scan_hits(*args, filt)
             calls.append(dict(
                 target=target, refs=refs, rows=rows, offs=offs, planes=planes,
-                hits=lambda a=args: kernels.scan_hits(*a),
+                hits=lambda a=args: kernels.scan_hits(*a, filt),
                 hits_plain=lambda a=args: kernels.scan_hits_plain(*a),
                 win=lambda p=planes: kernels.window_hits(p, *win),
                 win_plain=lambda p=planes: kernels.window_hits_plain(p, *win),
                 chunk=lambda o=offs, t=target: kernels.scan_chunk(
                     db.packed, db.mask, o, table.table, *scan, t, *win, params.least_depth)))
-        err, tot = 0, {}
+        err, tot, share_reads = 0, {}, {s: (0, 0) for s in share_filt}
         for c in calls:
             want, flags = c["hits_plain"](), c["win"]()
             same = (torch.equal(c["planes"], want), torch.equal(flags, c["win_plain"]()),
@@ -3275,39 +3326,33 @@ class Smoke:
                                   f"window_hits the fused scan_chunk on a chunk of "
                                   f"{len(c['refs'])} refs + {c['rows'] - len(c['refs'])} pad "
                                   f"rows × {c['target']} positions: {same}")
-            h = kernels.scan_hashes_plain(db.packed, db.mask, c["offs"], *scan,
-                                          c["target"]) - table.lo
-            reads = int(((h >= 0) & (h < table.table.numel()) & (h + table.lo != 0)).sum())
+            h = kernels.scan_hashes_plain(db.packed, db.mask, c["offs"], *scan, c["target"])
+            for s, sf in share_filt.items():  # each share's filter probes and shard reads
+                share_reads[s] = tuple(a + b for a, b in zip(
+                    share_reads[s], probe_reads(h, s[2], s[3], sf)))
+            reads, shard_reads = probe_reads(h, table.lo, table.table.numel(), filt)
             del h, want
             part = dict(positions=c["rows"] * c["target"], rows=c["rows"], reads=reads,
+                        shard_reads=shard_reads,
                         **{f"{n}_ms": cuda_ms(c[n], 20) for n in ("hits", "win", "chunk")},
                         **{f"{n}_ms": cuda_ms(c[n], 3) for n in ("hits_plain", "win_plain")})
             say(f"    chunk {c['rows']:4d} × {c['target']:7d}: scan_hits {part['hits_ms']:.4f} "
                 f"ms (plain {part['hits_plain_ms']:.4f}), window_hits {part['win_ms']:.4f} ms "
                 f"(plain {part['win_plain_ms']:.4f}), scan_chunk {part['chunk_ms']:.4f} ms; "
-                f"{reads} in-range table reads")
+                f"{reads} in-range hashes, {shard_reads} of them behind a set filter bit")
             for key, v in part.items():
                 tot[key] = tot.get(key, 0) + v
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize()
-        reps = 3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for c in calls:
-                    c["hits"]()
-                    c["win"]()
-                    c["chunk"]()
-            if self.dev.type == "cuda":
-                torch.cuda.synchronize()
-        kernel_ms = {n: sum(e.time_range.elapsed_us() for e in prof.events()
-                            if e.device_type == torch.autograd.DeviceType.CUDA
-                            and f"{n}_kernel" in e.name) / 1e3 / reps
-                     for n in ("scan_hits", "window_hits", "scan_chunk")}
-        profiled = any(kernel_ms.values())
-        hb = scan_hits_bound(tot["positions"], tot["rows"], tot["reads"])
+        kernel_ms = self.profiled_ms(
+            [f for c in calls for f in (c["hits"], c["win"], c["chunk"])],
+            ("scan_hits", "window_hits", "scan_chunk"))
+        profiled = kernel_ms is not None
+        kernel_ms = kernel_ms or {}
+        hb = scan_hits_bound(tot["positions"], tot["rows"], filt.fbits, tot["shard_reads"])
         wb = window_hits_bound(tot["positions"])
         say(f"  over {len(calls)} chunks, {tot['positions']} positions, {tot['reads']} in-range "
-            f"table reads: " + ("kernel time (profiler) " + ", ".join(
+            f"hashes (filter probes, {tot['reads'] * 32 / 1e9:.3f} GB at a 32-byte sector "
+            f"through the L2, a term the bound leaves out), {tot['shard_reads']} shard reads: "
+            + ("kernel time (profiler) " + ", ".join(
                 f"{n} {ms:.4f} ms" for n, ms in kernel_ms.items()) if profiled else
                 "kernel time not measured (the profiler saw no device events)")
             + f"; CUDA events around the wrappers: scan_hits {tot['hits_ms']:.4f} ms, "
@@ -3322,6 +3367,81 @@ class Smoke:
                 wrapper_ms=tot[f"{key}_ms"], plain_ms=tot[f"{key}_plain_ms"], bound=b,
                 library_ms=None, chunks=len(calls),
                 scan_chunk_ms=kernel_ms["scan_chunk"] if profiled else tot["chunk_ms"])
+        self.records["scan_hits"].update(positions=tot["positions"], rows=tot["rows"],
+                                         probes=tot["reads"], shard_reads=tot["shard_reads"])
+
+        # scan_hits at each share of 2 and 4 ranks, a slice of the whole table
+        for world, rank, lo, size in shares:
+            if world == 1:
+                continue
+            shard = table.table[lo - table.lo:lo - table.lo + size]
+            sf = share_filt[(world, rank, lo, size)]
+            runs = [lambda c=c: kernels.scan_hits(db.packed, db.mask, c["offs"], shard, lo, *scan,
+                                                  c["target"], params.least_depth, sf)
+                    for c in calls]
+            same = all(torch.equal(run(), kernels.scan_hits_plain(
+                db.packed, db.mask, c["offs"], shard, lo, *scan, c["target"],
+                params.least_depth)) for run, c in zip(runs, calls))
+            ms = self.profiled_ms(runs, ("scan_hits",))
+            events = sum(cuda_ms(run, 20) for run in runs)
+            reads, shard_reads = share_reads[(world, rank, lo, size)]
+            b = scan_hits_bound(tot["positions"], tot["rows"], sf.fbits, shard_reads)
+            self.check(same, f"scan_hits at world {world}, rank {rank} (hashes [{lo}, "
+                             f"{lo + size})) equals its plain version on the {len(calls)} chunks")
+            say(f"  scan_hits, world {world} rank {rank}: {reads} in-range hashes, "
+                f"{shard_reads} shard reads, "
+                + (f"{ms['scan_hits']:.4f} ms (profiler)" if ms else "kernel time not measured")
+                + f", {events:.4f} ms (CUDA events around the wrappers); bound {b[0]:.4f} ms "
+                f"({b[1]}: a 32-byte sector a shard read, the probes left to the L2)")
+            self.records.setdefault("scan_hits_shares", {})[f"{world}/{rank}"] = dict(
+                reads=reads, shard_reads=shard_reads, fbits=sf.fbits,
+                ms=ms["scan_hits"] if ms else None, wrapper_ms=events, bound=b)
+
+    def hit_filter_phase(self, shard, least_depth: int):
+        """``hit_filter`` of the one rank's shard, the whole table, against
+        its plain version: its time (CUDA events; the memset and the kernel,
+        no synchronize in the wrapper), its bound (the shard read once, the
+        bitmap written once), the plain version's time and the share of set
+        bits.  Returns the filter."""
+        from palace_tpu_torch.ops import kernels
+
+        filt = kernels.hit_filter(shard, least_depth)
+        plain = kernels.hit_filter_plain(shard, least_depth)
+        same = torch.equal(filt.words, plain.words) and filt.fbits == plain.fbits
+        self.check(same, f"hit_filter equals its plain version on the {shard.numel()}-slot "
+                         f"shard (2^{filt.fbits} bits)")
+        del plain
+        ms = cuda_ms(lambda: kernels.hit_filter(shard, least_depth), 5)
+        plain_ms = cuda_ms(lambda: kernels.hit_filter_plain(shard, least_depth), 2)
+        ones = torch.tensor([bin(i).count("1") for i in range(256)], device=shard.device)
+        set_share = int(ones[filt.words.view(torch.uint8).long()].sum()) / (1 << filt.fbits)
+        b = bound(shard.numel() + (1 << filt.fbits) // 8, shard.numel(), torch.float32)
+        say(f"  hit_filter: {ms:.4f} ms for {shard.numel()} slots into 2^{filt.fbits} bits "
+            f"({set_share:.4%} set), bound {b[0]:.4f} ms ({b[1]}), plain {plain_ms:.4f} ms")
+        self.records["hit_filter"] = dict(
+            dtype="a uint8 table shard in, a bitmap of the slots counting least_depth out",
+            max_abs_err=0.0 if same else float("inf"), ms=ms, plain_ms=plain_ms, bound=b,
+            library_ms=None, set_share=set_share)
+        return filt
+
+    def profiled_ms(self, runs: list, names: tuple, reps: int = 3) -> dict | None:
+        """Device ms a pass over ``runs`` of each kernel in ``names`` from
+        torch.profiler, over ``reps`` passes; None where the profiler saw no
+        device events."""
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for run in runs:
+                    run()
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize()
+        ms = {n: sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and f"{n}_kernel" in e.name) / 1e3 / reps for n in names}
+        return ms if any(ms.values()) else None
 
     def eref_mesh_two_ranks(self, world, tmp: Path) -> None:
         """Phase 21: ``ACROSS_RANKS`` processes on the one card under gloo with
@@ -3353,10 +3473,10 @@ class Smoke:
                                             f"equals its block of a one-device table")
                 la = rec["launches"]
                 self.check(la["scan_hits"] == la["window_hits"] == n_chunks
-                           and la["scan_chunk"] == 0,
+                           and la["scan_chunk"] == 0 and la["hit_filter"] == 1,
                            f"{what}: launched scan_hits and window_hits once a chunk, scan_chunk "
                            f"never ({la['scan_hits']}, {la['window_hits']}, {la['scan_chunk']}; "
-                           f"{n_chunks} chunks)")
+                           f"{n_chunks} chunks), hit_filter once a Phase B ({la['hit_filter']})")
                 (a_s, a_b), (b_s, b_b) = rec["collectives"]["A"], rec["collectives"]["B"]
                 say(f"  {what}: {rec['wall_s']:.3f} s; Phase A {rec['phase_a_s']:.3f} s "
                     f"(collectives {a_s * 1e3:.1f} ms, {a_b:.0f} bytes), Phase B "
@@ -3400,7 +3520,7 @@ class Smoke:
         for r in ranks:
             la = r["launches"]
             want = dict(transition_counts=n, sage_rounds=n, conv_head=3 * n, scan_hits=c,
-                        window_hits=c, scan_chunk=0)
+                        window_hits=c, scan_chunk=0, hit_filter=1)
             self.check({k: la[k] for k in want} == want,
                        f"pipeline, rank {r['rank']}: launched {want} (got "
                        f"{ {k: la[k] for k in want} })")
@@ -3580,7 +3700,8 @@ def main() -> int:
                     scan_chunk=smoke.records["eref"]["launches"]["scan_chunk"],
                     good_windows=smoke.records["per_reference"]["launches"]["good_windows"],
                     scan_hits=smoke.records["eref_mesh"]["launches"]["scan_hits"],
-                    window_hits=smoke.records["eref_mesh"]["launches"]["window_hits"])
+                    window_hits=smoke.records["eref_mesh"]["launches"]["window_hits"],
+                    hit_filter=smoke.records["eref_mesh"]["launches"]["hit_filter"])
     # and the float32 routes of K2 and K3, the pipeline's default dtype, in the
     # float32 slice
     f32 = {f"{k}/float32": KERNELS[k] for k in ("sage_rounds", "conv_head")}

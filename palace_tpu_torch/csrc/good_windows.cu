@@ -2,7 +2,7 @@
 // good_windows_pallas (palace_tpu/ops/pallas_kernels.py) and, on Phase B's
 // path, its XLA twin good_windows_batch (palace_tpu/ops/window.py) together
 // with the unpack, hash and lookup before it (palace_tpu/search/eref.py
-// _scan_body).  Four entries share the hashing and the window stage:
+// _scan_body).  Five entries share the hashing and the window stage:
 //
 //   palace_good_windows  counts and hashes (NB, L, 3) → flags: the one-to-one
 //                        counterpart of good_windows_pallas;
@@ -16,8 +16,11 @@
 //                        each bit has one owning rank, so a sum of the ranks'
 //                        planes is their OR (JAX's _scan_ref_fused_sharded
 //                        joins int32 counts with a psum instead);
-//   palace_window_hits   the OR-ed planes → flags: n = the popcount of a
-//                        position's three bits, then the window stage.
+//   palace_window_hits   the OR-ed planes → flags: single = p0 | p1 | p2 and
+//                        trio = p0 & p1 & p2, 32 positions a word, and the
+//                        window sums as differences of word popcounts;
+//   palace_hit_filter    a shard → the bitmap scan_hits reads before it, once
+//                        a Phase B (the table does not change while it runs).
 //
 // Per row and position j: a coder hits when its count equals least_depth
 // and its hash is not 0; single = at least one of the 3 coders hits, trio =
@@ -70,12 +73,32 @@
 // still makes 512 blocks for the card's 132 SMs.
 //
 // palace_scan_hits reads what scan_chunk reads but only the hashes of its own
-// range read the shard, about 1 / world of them (each still a 32-byte sector
-// at random); it writes 0.375 B a position, three bits, and needs no halo:
-// its blocks take kScanTile positions and hash them as scan_chunk's step 1b
-// does.  palace_window_hits reads the 0.375 B and writes the 0.125 B of flags;
-// a thread turns one byte of each plane into 8 indicators, and its blocks of
-// kScanTile positions reread the `window` before them, as scan_chunk's do.
+// range read the shard, about 1 / world of them; it writes 0.375 B a
+// position, three bits, and needs no halo: its blocks take kScanTile
+// positions and hash them as scan_chunk's step 1b does.  The first design
+// read the shard for every in-range hash, a floor of 1.20 ms at a 32-byte
+// sector each for phase 20's 125.7 M at world 1; this one's bound counts
+// the filter once and a sector for each shard read behind a set bit (14.3 M
+// there), and leaves the filter's probes, which the L2 serves, to a term of
+// their own.
+// What the H100 does with such reads (tools/k4_sharded.py variants): 1-byte
+// reads at random addresses of a 4 GiB table run at 30.5 G/s, 4.11 ms,
+// with 8, 24 or 64 in flight a thread, and the first design reading the
+// shard for every hash at 28.6 G/s: the ceiling is device memory's rate for
+// random sectors, not the kernel.  Windows of 256 MiB-1 GiB, or the reads
+// grouped by region, gain under 10 %; within 4-16 MiB, which the L2
+// holds, they run at 116 G/s.  A probe asks one bit, count == least_depth,
+// and almost every answer is no; so palace_hit_filter folds the shard into
+// a 2^27-bit (16 MiB) bitmap, bit i mod 2^27 set where slot i counts
+// least_depth, and scan_hits reads the bitmap for every in-range hash, 24
+// reads a thread in flight, and the shard only behind a set bit (5.5 % of
+// the bits at k = 32 on phase 20's table).  A queue of those shard reads in
+// shared memory, drained once a block, ran slower: the drain's wait was not
+// hidden.  palace_window_hits reads the 0.375 B and writes the 0.125 B of flags,
+// and never leaves the bits: a window sum is a difference of two prefix
+// popcounts, so a block of 256 output words (8192 positions) keeps two words
+// and two prefixes a word of its tile and halo in shared memory, one block
+// scan in all, and a thread forms and stores one word of 32 flags.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -313,14 +336,58 @@ __global__ void __launch_bounds__(kThreads) scan_chunk_kernel(
                           out + (size_t)row * (target / 8));
 }
 
+// The hit filter of a shard: bit (i & fmask) is set for every slot i with
+// shard[i] == least_depth, fmask = 2^fbits - 1.  A shard of at most 2^fbits
+// slots gets one bit a slot; a larger one folds its slots onto the bits, so a
+// clear bit says no slot it stands for counts least_depth, and a set bit is
+// read through to the shard.  The caller zeroes filt.  Reads the shard once,
+// 16 B a load from its first 16-byte boundary (block 0 takes the bytes
+// before it and after the last 16); the set bits are few (atomicOr).
+__global__ void __launch_bounds__(kThreads) hit_filter_kernel(
+    const uint8_t* __restrict__ shard, unsigned long long size, uint32_t* __restrict__ filt,
+    uint32_t fmask, int least_depth) {
+  const unsigned long long head =
+      min(size, (unsigned long long)((16 - (uintptr_t)shard % 16) % 16));
+  const unsigned long long n16 = (size - head) / 16;
+  const unsigned long long step = (unsigned long long)gridDim.x * kThreads;
+  const uint32_t want = 0x01010101u * (uint32_t)(least_depth & 0xff);
+  const uint4* body = reinterpret_cast<const uint4*>(shard + head);
+  auto mark = [&](unsigned long long slot) {
+    const uint32_t bit = (uint32_t)slot & fmask;
+    atomicOr(filt + (bit >> 5), 1u << (bit & 31));
+  };
+  for (unsigned long long q = (unsigned long long)blockIdx.x * kThreads + threadIdx.x; q < n16;
+       q += step) {
+    const uint4 v = __ldg(body + q);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t eq = __vcmpeq4(w[j], want);  // 0xff in each byte that matches
+      if (eq)
+        for (int b = 0; b < 4; ++b)
+          if ((eq >> (8 * b)) & 1u) mark(head + 16 * q + 4 * j + b);
+    }
+  }
+  if (blockIdx.x == 0) {
+    for (unsigned long long i = threadIdx.x; i < head; i += kThreads)
+      if (shard[i] == (uint8_t)least_depth) mark(i);
+    for (unsigned long long i = head + 16 * n16 + threadIdx.x; i < size; i += kThreads)
+      if (shard[i] == (uint8_t)least_depth) mark(i);
+  }
+}
+
 // One rank's hit bits of a Phase B chunk against its shard [lo, hi) of the
 // table: bit j % 8 of byte j / 8 of plane c is set where coder c's hash h at
 // position j is not 0, lies in [lo, hi) and shard[h - lo] == least_depth.
+// Each thread hashes kBatch positions, then reads the hit filter's word of
+// each in-range hash (24 reads issued together, into a bitmap the L2 holds),
+// and only where the hash's bit is set reads the shard.
 __global__ void __launch_bounds__(kThreads) scan_hits_kernel(
     const uint8_t* __restrict__ packed, const uint8_t* __restrict__ mask,
     const int64_t* __restrict__ offsets, const uint8_t* __restrict__ shard,
-    const CoderMasks cm, uint8_t* __restrict__ out, int target, int k, int least_depth,
-    unsigned long long lo, unsigned long long hi) {
+    const uint32_t* __restrict__ filt, uint32_t fmask, const CoderMasks cm,
+    uint8_t* __restrict__ out, int target, int k, int least_depth, unsigned long long lo,
+    unsigned long long hi) {
   constexpr int nw = plane_words(0);
   __shared__ uint32_t planes[3 * nw];
   const int row = blockIdx.y;
@@ -344,14 +411,25 @@ __global__ void __launch_bounds__(kThreads) scan_hits_kernel(
       const int pos = t0 + i0 + b * kThreads;
       h[b] = pos < eb ? hash3(lo_p, hi_p, inv_p, pos - t0, k, cm) : Hash3{{0, 0, 0}};
     }
-    uint32_t cnt[kBatch][3];
+    // the filter words, then the shard's counts where a bit is set; a hash
+    // out of range (or 0) keeps offset 0 and a word of 0: no read at all
+    uint32_t word[kBatch][3];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b)
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         const unsigned long long v = h[b].v[i];
         const bool mine = v != 0 && v >= lo && v < hi;
-        cnt[b][i] = mine ? __ldg(shard + (size_t)(v - lo)) : 0xffffffffu;
+        h[b].v[i] = mine ? (uint32_t)(v - lo) : 0u;  // hi - lo <= 2^32
+        word[b][i] = mine ? __ldg(filt + ((h[b].v[i] & fmask) >> 5)) : 0u;
+      }
+    uint32_t cnt[kBatch][3];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const bool maybe = (word[b][i] >> (h[b].v[i] & 31)) & 1u;
+        cnt[b][i] = maybe ? __ldg(shard + h[b].v[i]) : 0xffffffffu;
       }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
@@ -366,44 +444,126 @@ __global__ void __launch_bounds__(kThreads) scan_hits_kernel(
   }
 }
 
-// Flags from the OR-ed planes of scan_hits: a position's n is the popcount of
-// its three bits; then the window stage over kScanTile positions and the
-// `window` before them.
+// window_hits: output words (32 positions each) a block, and the most words
+// of halo before them (GOOD_WINDOWS_MAX_WINDOW = 32768: 1024 + 1)
+constexpr int kWinWords = kThreads;
+constexpr int kWinExt = kWinWords + 32768 / 32 + 1;
+
+// Word w of a plane of nbytes bytes, positions 32 w .. 32 w + 31; 0 outside
+// the plane.  aligned: the plane starts on a 4-byte boundary and nbytes % 4
+// == 0, so a word is one 4-byte load; else it is read a byte at a time.
+__device__ __forceinline__ uint32_t plane_word(const uint8_t* __restrict__ p, int w, int nbytes,
+                                               bool aligned) {
+  if (w < 0 || 4 * w >= nbytes) return 0u;
+  if (aligned) return __ldg(reinterpret_cast<const uint32_t*>(p) + w);
+  uint32_t x = 0;
+  const int n = min(4, nbytes - 4 * w);
+  for (int b = 0; b < n; ++b) x |= (uint32_t)__ldg(p + 4 * w + b) << (8 * b);
+  return x;
+}
+
+// Flags from the OR-ed planes of scan_hits, bit-parallel.  A block takes
+// kWinWords output words of a row and the `halo` words before them:
+//   1. single = p0 | p1 | p2 and trio = p0 & p1 & p2 a word, into shared
+//      memory; words before 0 or past the row are 0 (misses);
+//   2. one block scan of the words' popcounts: P[i], the set bits before
+//      word i;
+//   3. a thread a word o: with x = 32 o - window and P(x) = P[x / 32] +
+//      popc(word & (2^(x % 32) - 1)), the sum ending at 32 o - 1 is P[o] -
+//      P(x); the sum ending at 32 o + b adds the bits 0..b of word o and
+//      takes away those of the 32 bits from x (a funnel shift of two
+//      words); the 32 flags are stored as one word.
+// Shared memory: two words and two prefixes an entry, 20.5 KB at the
+// largest window.
 __global__ void __launch_bounds__(kThreads) window_hits_kernel(
     const uint8_t* __restrict__ planes, uint8_t* __restrict__ out, int target, int window,
-    int one_min, int three_min) {
-  extern __shared__ int cs[];  // kScanTile + window entries
-  __shared__ int warp_sums[kWarps];
+    int one_min, int three_min, bool aligned) {
+  __shared__ uint32_t single_w[kWinExt], trio_w[kWinExt];
+  __shared__ int single_p[kWinExt], trio_p[kWinExt];
+  __shared__ int warp_sums[2][kWarps];
   const int row = blockIdx.y;
-  const int t0 = blockIdx.x * kScanTile;
-  const int n_ext = kScanTile + window;
-  const int e0 = t0 - window;  // position of entry 0
-  const int plane_bytes = target / 8;
-  const uint8_t* p0 = planes + (size_t)row * 3 * plane_bytes;
-  const uint8_t* p1 = p0 + plane_bytes;
-  const uint8_t* p2 = p1 + plane_bytes;
+  const int nbytes = target / 8, nwords = (nbytes + 3) / 4;
+  const int halo = (window + 31) / 32 + 1;  // 32 halo > window: x lies past entry 0
+  const int w0 = blockIdx.x * kWinWords;     // the block's first output word
+  const int e0 = w0 - halo;                  // the word of entry 0
+  const int n_ext = halo + min(kWinWords, nwords - w0);
+  const uint8_t* p0 = planes + (size_t)row * 3 * nbytes;
+  const uint8_t* p1 = p0 + nbytes;
+  const uint8_t* p2 = p1 + nbytes;
 
-  // 1. indicators of [e0, t0 + kScanTile), one byte of each plane (8
-  // positions) a thread; positions outside [0, target) count as misses
-  const int b_first = (e0 >= 0 ? e0 : e0 - 7) / 8;  // floor(e0 / 8)
-  const int b_last = (t0 + kScanTile - 1) / 8;
-  for (int b = b_first + threadIdx.x; b <= b_last; b += kThreads) {
-    uint32_t x0 = 0, x1 = 0, x2 = 0;
-    if (b >= 0 && b < plane_bytes) {
-      x0 = p0[b];
-      x1 = p1[b];
-      x2 = p2[b];
-    }
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const int i = 8 * b + s - e0;
-      if (i >= 0 && i < n_ext)
-        cs[i] = indicator((int)(((x0 >> s) & 1) + ((x1 >> s) & 1) + ((x2 >> s) & 1)));
-    }
+  // 1. single and trio words of entries [0, n_ext)
+  for (int i = threadIdx.x; i < n_ext; i += kThreads) {
+    const int w = e0 + i;
+    const uint32_t x0 = plane_word(p0, w, nbytes, aligned), x1 = plane_word(p1, w, nbytes, aligned),
+                   x2 = plane_word(p2, w, nbytes, aligned);
+    single_w[i] = x0 | x1 | x2;
+    trio_w[i] = x0 & x1 & x2;
   }
   __syncthreads();
-  window_flags<kScanTile>(cs, warp_sums, n_ext, t0, target, window, one_min, three_min,
-                          out + (size_t)row * plane_bytes);
+
+  // 2. exclusive prefix of the popcounts: consecutive entries a thread,
+  // warp shuffles, then the warp totals
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (n_ext + kThreads - 1) / kThreads, i0 = threadIdx.x * per;
+  int s_sum = 0, t_sum = 0;
+  for (int k = 0; k < per; ++k)
+    if (i0 + k < n_ext) {
+      s_sum += __popc(single_w[i0 + k]);
+      t_sum += __popc(trio_w[i0 + k]);
+    }
+  int s_inc = s_sum, t_inc = t_sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int ys = __shfl_up_sync(0xffffffffu, s_inc, o), yt = __shfl_up_sync(0xffffffffu, t_inc, o);
+    if (lane >= o) {
+      s_inc += ys;
+      t_inc += yt;
+    }
+  }
+  if (lane == 31) {
+    warp_sums[0][warp] = s_inc;
+    warp_sums[1][warp] = t_inc;
+  }
+  __syncthreads();
+  int s_before = s_inc - s_sum, t_before = t_inc - t_sum;
+  for (int w = 0; w < warp; ++w) {
+    s_before += warp_sums[0][w];
+    t_before += warp_sums[1][w];
+  }
+  for (int k = 0; k < per; ++k)
+    if (i0 + k < n_ext) {
+      single_p[i0 + k] = s_before;
+      trio_p[i0 + k] = t_before;
+      s_before += __popc(single_w[i0 + k]);
+      t_before += __popc(trio_w[i0 + k]);
+    }
+  __syncthreads();
+
+  // 3. the 32 flags of output word o
+  const int o = w0 + threadIdx.x;
+  if (o >= nwords) return;
+  const int i = halo + threadIdx.x;       // entry of word o
+  const int rel = 32 * i - window;        // x - 32 e0, at least 32
+  const int xi = rel >> 5, xs = rel & 31;
+  const uint32_t below = (1u << xs) - 1u;
+  int s_win = single_p[i] - single_p[xi] - __popc(single_w[xi] & below);
+  int t_win = trio_p[i] - trio_p[xi] - __popc(trio_w[xi] & below);
+  const uint32_t s_in = single_w[i], t_in = trio_w[i];
+  const uint32_t s_out = __funnelshift_r(single_w[xi], single_w[xi + 1], xs);
+  const uint32_t t_out = __funnelshift_r(trio_w[xi], trio_w[xi + 1], xs);
+  uint32_t flags = 0;
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    s_win += (int)((s_in >> b) & 1u) - (int)((s_out >> b) & 1u);
+    t_win += (int)((t_in >> b) & 1u) - (int)((t_out >> b) & 1u);
+    flags |= (uint32_t)(s_win >= one_min && t_win >= three_min) << b;
+  }
+  uint8_t* orow = out + (size_t)row * nbytes;
+  if (aligned) {
+    reinterpret_cast<uint32_t*>(orow)[o] = flags;
+  } else {
+    for (int b = 0; b < 4 && 4 * o + b < nbytes; ++b) orow[4 * o + b] = (uint8_t)(flags >> (8 * b));
+  }
 }
 
 CoderMasks read_masks(const void* coder_masks) {
@@ -454,27 +614,47 @@ extern "C" int palace_scan_chunk(const void* packed, const void* mask, const voi
   return (int)cudaGetLastError();
 }
 
-// scan_chunk's inputs with the rank's shard of the table and its hash range
-// [lo, hi) in place of the table → (rows, 3, target / 8) hit bit-planes.
+// The hit filter of a shard of `size` slots into filt, 2^fbits bits (fbits >= 5),
+// zeroed here on the stream first.
+extern "C" int palace_hit_filter(const void* shard, long long size, void* filt, int fbits,
+                                 int least_depth, void* stream) {
+  const size_t bytes = (size_t)1 << (fbits - 3);
+  if (int err = (int)cudaMemsetAsync(filt, 0, bytes, (cudaStream_t)stream)) return err;
+  int dev = 0, sms = 0;
+  if (int err = (int)cudaGetDevice(&dev)) return err;
+  if (int err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return err;
+  const long long need = (size / 16 + kThreads - 1) / kThreads + 1;
+  const long long blocks = need < 8LL * sms ? need : 8LL * sms;
+  hit_filter_kernel<<<(int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)shard, (unsigned long long)size, (uint32_t*)filt,
+      (uint32_t)(((unsigned long long)1 << fbits) - 1), least_depth);
+  return (int)cudaGetLastError();
+}
+
+// scan_chunk's inputs with the rank's shard of the table, its hit filter
+// (2^fbits bits) and its hash range [lo, hi) in place of the table →
+// (rows, 3, target / 8) hit bit-planes.
 extern "C" int palace_scan_hits(const void* packed, const void* mask, const void* offsets,
-                                const void* shard, const void* coder_masks, void* out,
-                                int rows, int target, int k, int least_depth, long long lo,
-                                long long hi, void* stream) {
+                                const void* shard, const void* filt, int fbits,
+                                const void* coder_masks, void* out, int rows, int target, int k,
+                                int least_depth, long long lo, long long hi, void* stream) {
   const dim3 grid((target + kScanTile - 1) / kScanTile, rows);
   scan_hits_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)packed, (const uint8_t*)mask, (const int64_t*)offsets,
-      (const uint8_t*)shard, read_masks(coder_masks), (uint8_t*)out, target, k, least_depth,
-      (unsigned long long)lo, (unsigned long long)hi);
+      (const uint8_t*)shard, (const uint32_t*)filt,
+      (uint32_t)(((unsigned long long)1 << fbits) - 1), read_masks(coder_masks), (uint8_t*)out,
+      target, k, least_depth, (unsigned long long)lo, (unsigned long long)hi);
   return (int)cudaGetLastError();
 }
 
 // (rows, 3, target / 8) OR-ed hit bit-planes → (rows, target / 8) flags.
 extern "C" int palace_window_hits(const void* planes, void* out, int rows, int target,
                                   int window, int one_min, int three_min, void* stream) {
-  const int smem = (kScanTile + window) * (int)sizeof(int);
-  if (int err = set_smem(window_hits_kernel, smem)) return err;
-  const dim3 grid((target + kScanTile - 1) / kScanTile, rows);
-  window_hits_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)planes, (uint8_t*)out, target, window, one_min, three_min);
+  const int nbytes = target / 8;
+  const bool aligned =
+      nbytes % 4 == 0 && (uintptr_t)planes % 4 == 0 && (uintptr_t)out % 4 == 0;
+  const dim3 grid((nbytes + 4 * kWinWords - 1) / (4 * kWinWords), rows);
+  window_hits_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)planes, (uint8_t*)out, target, window, one_min, three_min, aligned);
   return (int)cudaGetLastError();
 }

@@ -47,7 +47,8 @@ KERNELS = {
     "scan_chunk": ("good_windows.cu", "palace_scan_chunk",
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "scan_hits": ("good_windows.cu", "palace_scan_hits",
-                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _P]),
+                  [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _L, _L, _P]),
+    "hit_filter": ("good_windows.cu", "palace_hit_filter", [_P, _L, _P, _I, _I, _P]),
     "window_hits": ("good_windows.cu", "palace_window_hits",
                     [_P, _P, _I, _I, _I, _I, _I, _P]),
 }

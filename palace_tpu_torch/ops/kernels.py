@@ -15,7 +15,8 @@ included, and are the reference the kernels are held to on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -424,7 +425,8 @@ def conv_head(x: torch.Tensor, weights: Sequence[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 #: the largest window K4 takes: the block's scan of tile + window positions
-#: lives in shared memory, and single and trio sums share one int32
+#: (``window_hits``: tile + window / 32 + 1 words) lives in shared memory,
+#: and single and trio sums share one int32
 GOOD_WINDOWS_MAX_WINDOW = 32768
 
 
@@ -665,9 +667,81 @@ def scan_hits_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Ten
         rows, 3, target // 8)
 
 
+#: the most bits of ``scan_hits``' hit filter: 2^27 bits, 16 MiB.  On the
+#: H100 random reads within 4-16 MiB run at 112-115 G/s, within 32 MiB at
+#: 83 and 64 MiB at 48; on phase 20's chunks at world 1 filters of 2^25-2^29
+#: bits gave 1.85, 1.64, 1.59, 2.00 and 3.06 ms, fewer bits setting more of
+#: them (``palace_tpu_torch/tools/k4_sharded.py variants``); read at each call
+HIT_FILTER_BITS = 27
+
+
+@dataclass(frozen=True)
+class HitFilter:
+    """``scan_hits``' hit filter of one shard (``hit_filter``): ``words``,
+    (2^fbits / 32,) int32, has bit ``i mod 2^fbits`` set for every slot i
+    of the shard that counts ``least_depth``; ``shard`` is the (data_ptr,
+    numel) of the shard it was read from.  It holds for the shard as it
+    was: build it again after the shard changes."""
+    words: torch.Tensor
+    fbits: int
+    least_depth: int
+    shard: Tuple[int, int]
+
+
+def _filter_bits(size: int) -> int:
+    """One bit a slot up to 2^HIT_FILTER_BITS slots, at least one 32-bit word."""
+    return max(5, min(HIT_FILTER_BITS, (size - 1).bit_length()))
+
+
+def hit_filter_plain(shard: torch.Tensor, least_depth: int = 3) -> HitFilter:
+    """Plain version of ``hit_filter``: the shard 2^fbits slots at a time,
+    slot i + j onto bit j."""
+    fbits = _filter_bits(shard.numel())
+    n = 1 << fbits
+    bits = torch.zeros(n, dtype=torch.bool, device=shard.device)
+    for i in range(0, shard.numel(), n):
+        part = shard[i:i + n] == least_depth
+        bits[:part.numel()] |= part
+    words = pack_bits_plain(bits.reshape(1, -1)).reshape(-1).view(torch.int32)
+    return HitFilter(words, fbits, least_depth, (shard.data_ptr(), shard.numel()))
+
+
+def hit_filter(shard: torch.Tensor, least_depth: int = 3) -> HitFilter:
+    """The hit filter ``scan_hits`` reads before a shard: a bitmap of
+    2^fbits bits, fbits = min(HIT_FILTER_BITS, ceil(log2 S)) (at least 32
+    bits), with bit ``i mod 2^fbits`` set where ``shard[i] == least_depth``.
+    A shard of at most 2^HIT_FILTER_BITS slots gets one bit a slot; a larger one
+    folds its slots onto the bits, so that a clear bit rules out every
+    slot it stands for and a set bit is read through to the shard.
+
+    No TPU kernel computes it: it is the part of ``scan_hits``' redesign
+    that is made once a Phase B (``search/eref.py``), since the table does
+    not change while Phase B reads it.  Bound on the H100: bytes, the shard
+    read once and the bitmap written once.  Design (``csrc/good_windows.cu``
+    ``hit_filter_kernel``): the bitmap zeroed (``cudaMemsetAsync``), then
+    the shard read 16 B a load by 8 blocks an SM, ``__vcmpeq4`` for the
+    matching bytes and an ``atomicOr`` a match (few: most slots count 0).
+    Integer work, so it equals the plain version.  One launch a call.
+    """
+    cuda = _same_device("hit_filter", shard)
+    _require(shard.dtype == torch.uint8 and shard.dim() == 1 and shard.is_contiguous()
+             and 0 < shard.numel() <= 1 << 32,
+             "hit_filter: the shard must be contiguous uint8 (S,), 0 < S <= 2^32")
+    _require(0 <= least_depth <= 255, "hit_filter: least_depth must be in [0, 255]")
+    if not cuda:
+        return hit_filter_plain(shard, least_depth)
+    fbits = _filter_bits(shard.numel())
+    words = torch.empty(1 << (fbits - 5), dtype=torch.int32, device=shard.device)
+    err = _build.entry("hit_filter")(shard.data_ptr(), shard.numel(), words.data_ptr(), fbits,
+                                     least_depth, _stream(shard))
+    LAUNCHES["hit_filter"] += 1
+    _build.check("hit_filter", err)
+    return HitFilter(words, fbits, least_depth, (shard.data_ptr(), shard.numel()))
+
+
 def scan_hits(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
               shard: torch.Tensor, lo: int, perm: np.ndarray, k: int, target: int,
-              least_depth: int = 3) -> torch.Tensor:
+              least_depth: int, filt: Optional[HitFilter]) -> torch.Tensor:
     """One rank's hit bit-planes of a Phase B chunk against its shard of a
     count table split by hash range (``count_table.ShardedCountTable``).
 
@@ -678,6 +752,14 @@ def scan_hits(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
     ``least_depth``.  Every hash lies in one rank's range, so the sum of
     the ranks' planes (``dist.all_reduce``, uint8) is their OR, and
     ``window_hits`` of that equals ``scan_chunk`` on the whole table.
+    ``filt`` is the shard's ``hit_filter`` for ``least_depth``, made once
+    for many chunks (one a Phase B in ``search/eref.py``).  The card's
+    kernel reads it and raises without it; the plain version reads the
+    shard itself, so on the CPU it may be None.  A filter holds for the
+    shard as it was when it was made, and the check below knows the shard
+    only by its address and size: a caller that writes to the shard
+    (``ShardedCountTable.add_packed``) makes the filter again before the
+    next call, or a clear bit would hide a hit.
 
     Replaces, with ``window_hits``, ``good_windows_pallas``
     (palace_tpu/ops/pallas_kernels.py) on the sharded route of the JAX
@@ -685,20 +767,44 @@ def scan_hits(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
     every device's partial lookups (int32 counts, 12 B a position) are
     joined by a ``psum``; here 0.375 B a position crosses the mesh.  Bound
     on the H100: bytes, 0.375 B a position in (codes and invalid bits) and
-    0.375 B out, plus the table reads of the rank's own hashes, about 1 /
-    world of them, a 32-byte sector each.  Design (``csrc/good_windows.cu``):
-    ``scan_chunk``'s steps 1a-1b (bit-planes in shared memory, funnel-shift
-    hashing, 24 reads issued together) over ``SCAN_TILE`` positions a
-    block, no window halo, and three ``__ballot_sync`` words a warp.
-    Integer work, so it equals the plain version.  Checks its inputs as
-    ``scan_chunk`` does (one synchronize a call).
+    0.375 B out, 24 B of offsets a row, the filter read once, and a
+    32-byte sector for each shard read behind a set filter bit (14.3 M of
+    phase 20's 125.7 M in-range hashes at world 1, 2^27 bits); the
+    filter's probes, a 32-byte sector for each in-range hash, are served
+    by the L2 and are a term of their own, with no published rate.  The
+    first design read the shard for every in-range hash, a floor of 1.20
+    ms there at a 32-byte sector each.  What the card does with such
+    reads (``palace_tpu_torch/tools/k4_sharded.py variants``, H100 80GB
+    HBM3 at 700 W): 1-byte reads at random addresses of the 4 GiB table
+    run at 30.5 G/s, 4.11 ms, whether 8, 24 or 64 are in flight a thread,
+    and the first design, reading the shard for every in-range hash, at
+    28.6 G/s: that ceiling is device memory's rate for random sectors, not
+    the kernel's.  Read in 256 MiB or 1 GiB windows, or grouped by region
+    in the order they come, they gain under 10 %; read within 4-16 MiB,
+    which the L2 holds, they run at 116 G/s.  So the design puts what a
+    probe asks, count == least_depth, into a bitmap the L2 holds
+    (``hit_filter``, 2^27 bits, 16 MiB) and reads the shard only where a
+    bit is set.  Design (``csrc/good_windows.cu``): ``scan_chunk``'s steps
+    1a-1b (bit-planes in shared memory, funnel-shift hashing) over
+    ``SCAN_TILE`` positions a block, no window halo; each thread's 24
+    filter reads issued together, then the shard's reads behind the set
+    bits, and three ``__ballot_sync`` words a warp.  Integer work, so it
+    equals the plain version.  Checks its inputs as ``scan_chunk`` does
+    (one synchronize a call), and the filter against the shard and
+    ``least_depth``.
     """
     cuda = _same_device("scan_hits", packed, mask, offsets, shard)
     _check_scan("scan_hits", packed, mask, offsets, shard, perm, k, target)
     _require(0 <= lo < 1 << k, "scan_hits: the shard's range [lo, lo + S) must start "
                                "inside the 2^k hashes")
+    if filt is not None:
+        _require(filt.shard == (shard.data_ptr(), shard.numel())
+                 and filt.least_depth == least_depth and filt.words.device == shard.device
+                 and filt.words.numel() << 5 == 1 << filt.fbits,
+                 "scan_hits: filt must be this shard's hit_filter for least_depth")
     if not cuda:
         return scan_hits_plain(packed, mask, offsets, shard, lo, perm, k, target, least_depth)
+    _require(filt is not None, "scan_hits: on the card filt must be the shard's hit_filter")
     rows = offsets.shape[0]
     offsets = offsets.contiguous()
     out = torch.empty(rows, 3, target // 8, dtype=torch.uint8, device=packed.device)
@@ -707,8 +813,8 @@ def scan_hits(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
     masks = _coder_masks(perm, k)  # referenced until the call returns
     err = _build.entry("scan_hits")(
         packed.data_ptr(), mask.data_ptr(), offsets.data_ptr(), shard.data_ptr(),
-        ctypes.addressof(masks), out.data_ptr(), rows, target, k, least_depth, lo,
-        lo + shard.numel(), _stream(packed))
+        filt.words.data_ptr(), filt.fbits, ctypes.addressof(masks), out.data_ptr(), rows,
+        target, k, least_depth, lo, lo + shard.numel(), _stream(packed))
     LAUNCHES["scan_hits"] += 1
     _build.check("scan_hits", err)
     return out
@@ -734,12 +840,19 @@ def window_hits(planes: torch.Tensor, window: int, one_min: int,
     Replaces, with ``scan_hits``, ``good_windows_pallas``
     (palace_tpu/ops/pallas_kernels.py) on the JAX package's sharded Phase B
     route.  Bound on the H100: bytes, 0.375 B a position in and 0.125 B
-    out.  Design (``csrc/good_windows.cu``): a block takes ``SCAN_TILE``
-    positions of a row and the ``window`` before them, a thread turns one
-    byte of each plane into 8 indicators in shared memory, then the window
-    stage (scan, windowed sums, ``__ballot_sync``) shared with
-    ``good_windows`` and ``scan_chunk``.  Integer work, so it equals the
-    plain version.  Both routes check their inputs.
+    out.  Design (``csrc/good_windows.cu``), bit-parallel: the input is
+    bits, and a window sum is a difference of two prefix popcounts.  A
+    block takes 256 words of 32 output positions of a row and the
+    ``ceil(window / 32) + 1`` words before them; it forms single = p0 | p1
+    | p2 and trio = p0 & p1 & p2 a word in shared memory, scans the words'
+    popcounts once, and each thread forms one word of 32 flags: the sum
+    ending before the word from two prefixes and a popcount, then a bit
+    added and a bit (a funnel shift of two words) taken away a position,
+    stored as one 4-byte word.  Rows whose plane bytes are not a multiple
+    of 4, or planes not on a 4-byte boundary, are read and stored a byte
+    at a time.  Integer work, so it equals the plain version
+    (``tests/test_torch_window_bits.py`` emulates it).  Both routes check
+    their inputs.
     """
     cuda = _same_device("window_hits", planes)
     _require(planes.dtype == torch.uint8 and planes.dim() == 3 and planes.shape[1] == 3,

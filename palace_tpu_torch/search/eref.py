@@ -296,8 +296,9 @@ def search_references(table: CountTable | ShardedCountTable, index: PhageIndex,
     one copy, and every chunk is launched before any result is fetched:
     ``kernels.scan_chunk`` under the profiler span ``eref.scan`` returns
     its good flags packed 8 positions a byte.  On a ``ShardedCountTable``
-    (collective: every rank makes the same calls) each chunk is instead
-    ``kernels.scan_hits`` against the rank's shard, one uint8 all-reduce of
+    (collective: every rank makes the same calls) the rank's shard gets one
+    ``kernels.hit_filter``, and each chunk is instead
+    ``kernels.scan_hits`` against the shard, one uint8 all-reduce of
     the hit bit-planes over the mesh (each bit has one owning rank, so the
     sum is their OR), and ``kernels.window_hits``; every rank gets the same
     hits.  ``GLOBAL_METRICS`` keeps the host's three parts apart: the
@@ -314,12 +315,16 @@ def search_references(table: CountTable | ShardedCountTable, index: PhageIndex,
     offs = torch.from_numpy(offs).to(db.packed.device)
     launched, row0 = [], 0
     sharded = isinstance(table, ShardedCountTable)
+    filt = None  # the card's scan_hits reads a filter; the plain version reads the shard
+    if sharded and table.device.type == "cuda":  # one a Phase B: the shard does not change
+        with record_function("eref.hit_filter"):
+            filt = kernels.hit_filter(table.table, params.least_depth)
     for target, refs, rows in chunks:
         with record_function("eref.scan"):
             if sharded:
                 planes = kernels.scan_hits(db.packed, db.mask, offs[row0:row0 + rows],
                                            table.table, table.lo, index.perm, index.k, target,
-                                           params.least_depth)
+                                           params.least_depth, filt)
                 bits = kernels.window_hits(all_reduce_(planes, table.mesh.group_all),
                                            params.window, one_min, three_min)
             else:

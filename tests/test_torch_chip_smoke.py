@@ -240,7 +240,7 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
     assert smoke.records["scan_chunk"]["max_abs_err"] == 0
     assert smoke.records["scan_chunk"]["all_chunks"] >= smoke.records["scan_chunk"]["chunks"] >= 2
     assert set(chip_smoke.KERNELS) == set(chip_smoke.SCORING_KERNELS) | {
-        "good_windows", "scan_chunk", "scan_hits", "window_hits"}
+        "good_windows", "scan_chunk", "scan_hits", "window_hits", "hit_filter"}
 
 
 def test_graph_phases_run_on_the_cpu_at_a_small_size(monkeypatch):

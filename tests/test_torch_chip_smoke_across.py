@@ -55,6 +55,15 @@ def test_across_devices_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_p
         rec = smoke.records[name]
         assert rec["max_abs_err"] == 0 and rec["chunks"] >= 2 and rec["bound"][1] == "bytes"
     assert smoke.records["eref_mesh"]["launches"]["scan_hits"] == 0
+    shares = smoke.records["scan_hits_shares"]  # rank 0's and the last rank's of 2 and 4
+    assert set(shares) == {"2/0", "2/1", "4/0", "4/3"}
+    assert 0 < shares["4/0"]["reads"] < shares["2/0"]["reads"] and shares["4/3"]["reads"] > 0
+    rec = smoke.records["scan_hits"]
+    assert 0 < rec["shard_reads"] < rec["probes"]
+    for s in shares.values():  # each share's bound from its own shard reads behind set bits
+        assert 0 < s["shard_reads"] < s["reads"]
+        assert s["bound"] == chip_smoke.scan_hits_bound(rec["positions"], rec["rows"],
+                                                        s["fbits"], s["shard_reads"])
     ranks = smoke.records["eref_two_ranks"]
     assert [r["coords"] for r in ranks] == [(0, 0), (1, 0)]
     for r in ranks:
@@ -62,4 +71,6 @@ def test_across_devices_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_p
             assert run["shard"][1] and run["collectives"]["A"][1] > 0
             assert run["collectives"]["B"][1] > 0
     assert [r["rank"] for r in smoke.records["pipeline_mesh"]] == [0, 1]
-    assert set(chip_smoke.KERNELS) >= {"scan_hits", "window_hits"}
+    assert set(chip_smoke.KERNELS) >= {"scan_hits", "window_hits", "hit_filter"}
+    rec = smoke.records["hit_filter"]  # the one rank's shard, the whole 2^20-slot table
+    assert rec["max_abs_err"] == 0 and rec["bound"][1] == "bytes" and 0 < rec["set_share"] < 1

@@ -461,16 +461,20 @@ def test_card_scan_chunk_raises_instead_of_falling_back(cuda, scan_tables, tmp_p
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [32, 20])
-@pytest.mark.parametrize("world", [1, 2, 3])
-@pytest.mark.parametrize("window", [1, 500, kernels.SCAN_TILE + 1])
+@pytest.mark.parametrize("world", [1, 2, 3, 4])
+@pytest.mark.parametrize("window", [1, 31, 32, 33, 500, kernels.SCAN_TILE + 1,
+                                    kernels.GOOD_WINDOWS_MAX_WINDOW])
+@pytest.mark.parametrize("target", [12288, 4096, 6144])
 def test_card_scan_hits_and_window_hits_equal_plain(cuda, scan_tables, tmp_path, k, world,
-                                                    window):
+                                                    window, target):
     """The sharded Phase B on the card: each rank's hit bit-planes against
     its shard of a real table (4 GiB at k = 32, split as
     ``ShardedCountTable`` splits it) equal to ``scan_hits_plain``, one
     launch a call; ``window_hits`` of their sum equal to its plain version
-    and to ``scan_chunk`` on the whole table, with pad rows and edge rows."""
-    target = 12288  # one and a half tiles
+    and to ``scan_chunk`` on the whole table, with pad rows and edge rows;
+    at 12,288 positions one and a half of ``scan_hits``' tiles, at 4,096
+    half of ``window_hits``' 8,192; windows on both sides of a word and
+    past the row."""
     idx, packed, mask, offs = _scan_world(tmp_path, k, target)
     table = scan_tables[k]
     size = -(-(1 << k) // world)
@@ -478,7 +482,9 @@ def test_card_scan_hits_and_window_hits_equal_plain(cuda, scan_tables, tmp_path,
     for r in range(world):
         shard = table[r * size:(r + 1) * size]
         before = kernels.LAUNCHES["scan_hits"]
-        got = kernels.scan_hits(packed, mask, offs, shard, r * size, idx.perm, k, target)
+        filt = kernels.hit_filter(shard, 3)
+        got = kernels.scan_hits(packed, mask, offs, shard, r * size, idx.perm, k, target, 3,
+                                filt)
         want = kernels.scan_hits_plain(packed, mask, offs, shard, r * size, idx.perm, k, target)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["scan_hits"] == before + 1
@@ -487,7 +493,8 @@ def test_card_scan_hits_and_window_hits_equal_plain(cuda, scan_tables, tmp_path,
         planes.append(got)
     ored = torch.stack(planes).sum(dim=0, dtype=torch.uint8)
     assert torch.equal(ored, functools.reduce(torch.bitwise_or, planes))  # one owner a bit
-    one_min, three_min = (1, 1) if window == 1 else (int(0.9 * window), int(0.5 * window))
+    span = min(window, target)  # a window past the row flags only the row's end
+    one_min, three_min = (1, 1) if span == 1 else (int(0.9 * span), int(0.5 * span))
     before = kernels.LAUNCHES["window_hits"]
     got = kernels.window_hits(ored, window, one_min, three_min)
     want = kernels.window_hits_plain(ored, window, one_min, three_min)
@@ -506,16 +513,82 @@ def test_card_scan_hits_and_window_hits_raise_instead_of_falling_back(cuda, scan
     target = 12288
     idx, packed, mask, offs = _scan_world(tmp_path, 20, target)
     shard = scan_tables[20][: 1 << 19]
+    filt = kernels.hit_filter(shard, 3)
     before = {n: kernels.LAUNCHES[n] for n in ("scan_hits", "window_hits")}
     for bad in ((packed, mask, offs, shard.cpu(), 0), (packed, mask, offs.cpu(), shard, 0),
                 (packed, mask, offs, shard, 1 << 20)):
         with pytest.raises(ValueError):
-            kernels.scan_hits(*bad, idx.perm, 20, target)
+            kernels.scan_hits(*bad, idx.perm, 20, target, 3, filt)
+    other = scan_tables[20][1 << 19:]  # no filter, or one of another shard or depth
+    for bad in (None, kernels.hit_filter(other, 3), kernels.hit_filter(shard, 2)):
+        with pytest.raises(ValueError):
+            kernels.scan_hits(packed, mask, offs, shard, 0, idx.perm, 20, target, 3, bad)
+    for bad in (shard.int(), shard.reshape(2, -1), shard[:0]):
+        with pytest.raises(ValueError):
+            kernels.hit_filter(bad, 3)
     planes = torch.zeros(2, 3, 64, dtype=torch.uint8, device=cuda)
     for bad in (planes.int(), planes[:, :2]):
         with pytest.raises(ValueError):
             kernels.window_hits(bad, 50, 1, 1)
     assert {n: kernels.LAUNCHES[n] for n in before} == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 20])
+@pytest.mark.parametrize("world", [1, 3])
+@pytest.mark.parametrize("max_bits", [10, kernels.HIT_FILTER_BITS])
+def test_card_hit_filter_equals_plain(cuda, scan_tables, tmp_path, monkeypatch, k, world,
+                                      max_bits):
+    """``hit_filter`` of each rank's shard (world 3: shards that start off
+    a 16-byte boundary) equal to its plain version, one launch a call, and
+    ``scan_hits`` through it equal to ``scan_hits_plain``: a filter of 2^10
+    bits folds a 4 GiB shard's 2^22 slots onto each bit, so nearly every
+    probe reads the shard."""
+    monkeypatch.setattr(kernels, "HIT_FILTER_BITS", max_bits)
+    target = 12288
+    idx, packed, mask, offs = _scan_world(tmp_path, k, target)
+    table = scan_tables[k]
+    size = -(-(1 << k) // world)
+    for r in range(world):
+        shard = table[r * size:(r + 1) * size]
+        before = kernels.LAUNCHES["hit_filter"]
+        filt = kernels.hit_filter(shard, 3)
+        want = kernels.hit_filter_plain(shard, 3)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["hit_filter"] == before + 1
+        assert filt.fbits == want.fbits == min(max_bits, (shard.numel() - 1).bit_length())
+        assert torch.equal(filt.words, want.words)
+        got = kernels.scan_hits(packed, mask, offs, shard, r * size, idx.perm, k, target, 3, filt)
+        assert kernels.LAUNCHES["hit_filter"] == before + 1  # the filter given, none made
+        assert torch.equal(got, kernels.scan_hits_plain(packed, mask, offs, shard, r * size,
+                                                        idx.perm, k, target, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", [8, 6152, 24584])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_card_window_hits_byte_tail(cuda, target, offset):
+    """``window_hits`` where its rows are not whole 32-bit words: targets
+    that are a multiple of 8 but not of 32 (the last word of a row read and
+    stored a byte at a time), and planes that start one byte past a 4-byte
+    boundary (every word read a byte at a time), against its plain version."""
+    rng = np.random.default_rng(target + offset)
+    rows, nbytes = 3, target // 8
+    rate = np.repeat(rng.uniform(0.6, 1.0, (rows, 1, -(-target // 700))), 700, axis=2)
+    bits = rng.random((rows, 3, target)) < rate[:, :, :target]
+    flat = np.packbits(bits, axis=2, bitorder="little").reshape(-1)
+    buf = torch.from_numpy(np.pad(flat, (offset, 0))).to(cuda)
+    planes = buf[offset:].view(rows, 3, nbytes)
+    assert (planes.data_ptr() % 4 != 0) == (offset == 1)
+    for window in (1, 33, 500):
+        span = min(window, target)
+        args = (window, *((1, 1) if span == 1 else (int(0.9 * span), int(0.5 * span))))
+        before = kernels.LAUNCHES["window_hits"]
+        got = kernels.window_hits(planes, *args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["window_hits"] == before + 1
+        assert got.shape == (rows, nbytes)
+        assert torch.equal(got, kernels.window_hits_plain(planes, *args))
 
 
 @pytest.mark.cuda

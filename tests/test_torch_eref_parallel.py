@@ -281,7 +281,8 @@ def test_or_of_shard_hits_equals_scan_chunk_and_jax(scan_world, jax_scan, world)
         offs = torch.from_numpy(offs)
         planes = [kernels.scan_hits(packed, mask, offs, torch.from_numpy(shards[r * size:
                                                                               (r + 1) * size]),
-                                    r * size, idx.perm, k, target, 3) for r in range(world)]
+                                    r * size, idx.perm, k, target, 3, None)
+                  for r in range(world)]
         assert all(p.shape == (offs.shape[0], 3, target // 8) for p in planes)
         ored = planes[0]
         for p in planes[1:]:
@@ -305,14 +306,14 @@ def test_scan_hits_and_window_hits_check_their_inputs(scan_world):
     offs = torch.from_numpy(offs)
     shard = torch.from_numpy(table[:1 << (k - 1)])
     assert kernels.scan_hits(packed, mask, offs, shard, 1 << (k - 1), idx.perm, k,
-                             target).shape == (offs.shape[0], 3, target // 8)
+                             target, 3, None).shape == (offs.shape[0], 3, target // 8)
     past = offs.clone()
     past[0, 0] = packed.numel() - target // 4 + 1
     for bad in ((packed, mask, past, shard, 0), (packed, mask, offs.int(), shard, 0),
                 (packed, mask, offs, shard.int(), 0), (packed, mask, offs, shard, -1),
                 (packed, mask, offs, shard, 1 << k)):
         with pytest.raises(ValueError):
-            kernels.scan_hits(*bad, idx.perm, k, target)
+            kernels.scan_hits(*bad, idx.perm, k, target, 3, None)
     planes = torch.zeros(2, 3, 64, dtype=torch.uint8)
     for bad in ((planes.int(), 50), (planes[:, :2], 50), (planes, 0),
                 (planes, kernels.GOOD_WINDOWS_MAX_WINDOW + 1)):
