@@ -59,45 +59,63 @@ Phases, each of which must pass:
 5. where the time goes: the host's step for a batch beside the 2-bit
    packing it replaced, and device time by kernel over 4 batches from
    torch.profiler, in bfloat16 and in float32;
-6. the eref world of ``benchmarks/phaseb_scale.py:51-83``, replayed call
+6. the public names the port exports beside the scorer, on the slice's
+   first batch, each with the launch counters reset just before and read
+   just after: ``transition_features`` on the batch's ``seq_to_kmer_locs``
+   padded (512 × 10,238 codes), ``features_from_codes`` and
+   ``features_from_packed``, each one launch of K1's padded-codes entry
+   (``kernels.transition_counts``), bit-equal to the byte entry and to the
+   plain version; the codes entry on random codes with codes outside
+   [0, 64) and n_locs of 0 and L, equal to its plain version;
+   ``encode_batch`` and ``encode_sequences`` (the byte entry) bit-equal to
+   ``features_from_bytes``; ``phage_probabilities`` at ``GCNConfig()`` in
+   float32 (K2 once, K3 three times) within ``PROB_ATOL`` of
+   ``score_codes``; the codes entry's time, bound and plain version's time;
+7. the eref world of ``benchmarks/phaseb_scale.py:51-83``, replayed call
    for call: 5,000 references of 5-300 kb (357.8 Mbp, seed 7) and 200,000
    reads of 150 bp tiled from the first 100; the port's index build;
-7. the eref slice, the second main path: Phase A (``count_reads_into_table``,
+8. the eref slice, the second main path: Phase A (``count_reads_into_table``,
    k = 32, a 4 GiB count table) and Phase B (``search_references``, one
    ``scan_chunk`` a chunk) with the launch counters reset just before and
    read just after; every hit a planted reference, and as many hits as
    the JAX package reported on this world (``benchmarks/phaseb_5kref.json``);
    Phase B's peak memory and its host parts (launches, fetches, verdicts);
-8. K4 fused on real chunks: ``scan_chunk`` equal to its plain version on
+9. K4 fused on real chunks: ``scan_chunk`` equal to its plain version on
    every Phase B chunk; its time on the first chunk of each length bucket
    and one with pad rows, beside the parent's route (the torch hashing
    and lookup, then ``good_windows``), the plain version, its byte bound
    and the floor of its table reads; then ``good_windows`` alone on the
    counts and hashes of the same chunks, equal to its plain version;
-9. the per-reference scan, ``good_windows``' path: ``scan_reference`` over
+10. the window and hash names: ``window.good_windows_batch`` on the
+   counts and uint32 hashes of phase 9's chunks cut to a length that is not
+   a multiple of 8, one ``good_windows`` launch a call, equal to its CPU
+   route; ``window.good_windows`` on one reference row;
+   ``compute_hashes_for_seq`` on a phagedb reference, the card's equal to
+   the CPU's;
+11. the per-reference scan, ``good_windows``' path: ``scan_reference`` over
    the planted references with the counters reset just before and read
    just after, the same verdicts as Phase B; then Phase A with the native
    loader: the eref slice read its FASTQ with it and found the 67 hits, its
    batches equal the Python reader's, and Phase A's host seconds split into
    the reader, ``pack_codes_mask`` and ``add_packed``;
-10. where the time goes: Phase A's host reader apart from its update on the
+12. where the time goes: Phase A's host reader apart from its update on the
    card; Phase B's device time by step and by kernel over a few chunks
    (torch.profiler), and its wall time per chunk;
-11. the eref slice on a small world (k = 20) through ``run_search`` on the
+13. the eref slice on a small world (k = 20) through ``run_search`` on the
    card and on the CPU: byte-identical ``ref_names.txt``;
-12. the graph world (``make_graph_world``): a virome assembly of 5,000
+14. the graph world (``make_graph_world``): a virome assembly of 5,000
    contigs and 1,000,000 BAM records with junction evidence, written with
    the port's ``write_bam``;
-13. the graph path through the port's CLI: depth → graph → fastg2fa →
+15. the graph path through the port's CLI: depth → graph → fastg2fa →
    matching → makefa, the native route taken, every planted junction of 5
    good split reads in the graph and none unplanted, the Python builder's
    graph of the same BAM equal to the native one, which solver the
    matching ran, and the seconds of each step;
-14. the pipeline world (``make_pipeline_world``): a virome sample after
+16. the pipeline world (``make_pipeline_world``): a virome sample after
    SPAdes, 12 planted phages among 3,000 other contigs, its BAM, reads,
    gene hits, a 1,000-reference phagedb and a seeded checkpoint at
    ``GCNConfig()``'s width, made with the port's writers;
-15. the pipeline: ``run_pipeline(cfg, device="cuda")`` with every launch
+17. the pipeline: ``run_pipeline(cfg, device="cuda")`` with every launch
    counter reset just before and read just after: K1 and K2 launched once
    and K3 three times a scoring batch, ``scan_chunk`` once a chunk,
    ``good_windows`` never; ``node_scores.out`` in the assembly's order,
@@ -105,7 +123,7 @@ Phases, each of which must pass:
    exactly the planted references; every planted genome in the final
    FASTA; the seconds of each step and stage, the scorer's contigs/s,
    Phase A and B, and the peak device memory;
-16. training, after the card is freed: 2,048 contigs of 10 kb with a
+18. training, after the card is freed: 2,048 contigs of 10 kb with a
    spread of GC shares, labelled 1 above the median, their features
    through K1 (one launch); ``GCNConfig()`` in float32, batch 64,
    dropout 0.2; (a) one step on the card (TF32 switched on globally)
@@ -119,10 +137,10 @@ Phases, each of which must pass:
    parameters through ``score_sequences`` (K1-K3, counted) on the 256
    held-out contigs against the training module's eval forward, and the
    held-out accuracy;
-17. where a training step's time goes: ms a step, contigs trained a
+19. where a training step's time goes: ms a step, contigs trained a
    second, and the device time by part (``step_split``), with the peak
    memory and the checkpoint's bytes and seconds;
-18. the GCN across devices, one rank: ``parallel.distributed.initialize``
+20. the GCN across devices, one rank: ``parallel.distributed.initialize``
    with world size 1 (NCCL on the card), ``make_mesh``, then
    ``score_sequences(mesh=...)`` over 16 batches of 512 GC-spread 10 kb
    contigs at ``GCNConfig()`` in float32 and bfloat16 (the launch counters
@@ -131,45 +149,47 @@ Phases, each of which must pass:
    one (the loss within 1e-5 relative; the split parameters' gradients as
    exact as the one-rank step's against a float64 step, at most
    ``GRAD_ERR_RATIO`` times its error, as in 16 (a));
-19. the GCN across devices, two ranks sharing the one card under gloo
+21. the GCN across devices, two ranks sharing the one card under gloo
    with their tensors on the card (``torch.multiprocessing.spawn``, a
    ``file://`` store; NCCL will not put two ranks on one card), at
    (data, model) = (2, 1) and (1, 2): on every rank the same scoring
-   within 2e-4 (float32) and 2e-2 (bfloat16) of phase 18's one-rank
+   within 2e-4 (float32) and 2e-2 (bfloat16) of phase 20's one-rank
    probabilities, K1, K2 and K3 launched, one ``train_step`` held to the
    one-rank step as in 18 with the updated shards within Adam's ±lr; under
    (1, 2) a checkpoint written by rank 0 and restored on one rank equal to
    the gathered state; each layout's contigs/s, each rank's peak device
    memory and the collectives' ms a batch, of processes sharing one card
    (not scaling);
-20. eref across devices, one rank: a one-rank process group (NCCL on the
-   card) and its mesh on phase 6's world, the reads split into two halves
+22. eref across devices, one rank: a one-rank process group (NCCL on the
+   card) and its mesh on phase 7's world, the reads split into two halves
    (``split_reads``); ``run_search(mesh=...)`` with the launch counters
-   reset just before and read just after: phase 7's 67 hits and
+   reset just before and read just after: phase 8's 67 hits and
    ``ref_names.txt``, ``scan_hits`` and ``window_hits`` once a chunk,
    ``hit_filter`` once, ``scan_chunk`` never; then ``hit_filter`` of the
    rank's shard against its plain version, timed with its bound and the
    share of its bits set; ``scan_hits`` and ``window_hits`` against their
-   plain versions on the chunks of phase 8, ``window_hits`` against
+   plain versions on the chunks of phase 9, ``window_hits`` against
    ``scan_chunk``, each timed beside ``scan_chunk`` with its bound; and
    ``scan_hits`` at the shard ranges of 2 and 4 ranks (rank 0's and the
    last rank's share, ``SHARD_WORLDS``), equal to its plain version, each
    timed against the bound of its own reads;
-21. eref across devices, two ranks sharing the card under gloo at
+23. eref across devices, two ranks sharing the card under gloo at
    (data, model) = (2, 1): ``run_search(mesh=...)`` and
-   ``run_search_distributed`` on every rank, phase 7's hits, each rank's
+   ``run_search_distributed`` on every rank, phase 8's hits, each rank's
    shard equal to its block of a one-device table, ``ref_names.txt``
    written by rank 0 alone, ``scan_hits``/``window_hits`` launched once a
    chunk and ``hit_filter`` once; Phase A
    and B seconds, the collectives' ms and bytes, each rank's peak memory;
-22. the pipeline across devices: ``run_pipeline(cfg, mesh=...)`` on a copy
-   of phase 14's world, two ranks sharing the card under gloo at (2, 1):
-   the final FASTA byte-identical to phase 15's, ``node_scores.out`` within
+24. the pipeline across devices: ``run_pipeline(cfg, mesh=...)`` on a copy
+   of phase 16's world, two ranks sharing the card under gloo at (2, 1):
+   the final FASTA byte-identical to phase 17's, ``node_scores.out`` within
    2e-4 of it, K1-K3 and ``scan_hits``/``window_hits`` launched on both
    ranks, each step's seconds;
-23. a ``kernels`` JSON line (each kernel at its main path's dtype, and the
+25. a ``kernels`` JSON line (each kernel at its main path's dtype, and the
     float32 routes of K2 and K3, ``sage_rounds/float32`` and
-    ``conv_head/float32``, with their launches from the float32 slice),
+    ``conv_head/float32``, with their launches from the float32 slice, and
+    K1's padded-codes entry, ``transition_counts/codes``, with its launches
+    from phase 6),
     then, last, ``{"ok": true, "device": ...}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside
@@ -1167,21 +1187,21 @@ def reconstructed(final_fasta: Path, genomes: list) -> tuple:
     return found, others
 
 
-# -- phases 18-19: the GCN across devices --------------------------------------
+# -- phases 20-21: the GCN across devices --------------------------------------
 MESH_SEED = 19
-MESH_RANKS = 2                # two processes sharing the one card (phase 19)
+MESH_RANKS = 2                # two processes sharing the one card (phase 21)
 MESH_MODEL_PARALLEL = (1, 2)  # (data, model) = (2, 1), then (1, 2)
 MESH_LOSS_RTOL = 1e-5         # a sharded step's loss against the one-rank step's
 MESH_PARAM_ATOL = 1e-6        # updated shards, where Adam's sign does not flip
 MESH_PARAM_SHARE = 0.01       # the share of elements allowed past it, each within 2·lr
 MESH_TIMEOUT_S = 600
-#: a picklable callable each rank of phase 19 runs first (a CPU test's seam)
+#: a picklable callable each rank of phase 21 runs first (a CPU test's seam)
 MESH_SETUP = None
 MESH_HELD = ("pnode_d.w", "d1.w")  # the two split parameters
 
 
 def mesh_cfg():
-    """The model of phases 18-19: ``GCNConfig()`` at its published width,
+    """The model of phases 20-21: ``GCNConfig()`` at its published width,
     dropout 0.2."""
     from palace_tpu_torch.models.gcn import GCNConfig
 
@@ -1189,7 +1209,7 @@ def mesh_cfg():
 
 
 def mesh_job(device: str) -> dict:
-    """What each rank of phases 18-19 rebuilds its world from, as this
+    """What each rank of phases 20-21 rebuilds its world from, as this
     module holds it when the phase starts."""
     return dict(cfg=mesh_cfg(), n_contigs=N_CONTIGS, contig_len=CONTIG_LEN, batch=BATCH,
                 train_batch=TRAIN_BATCH, lr=TRAIN_LR, seed=MESH_SEED,
@@ -1291,9 +1311,9 @@ def shard_diffs(state, ref: dict) -> dict:
 
 
 def mesh_rank(rank: int, world: int, store: str, out: str, job: dict) -> None:
-    """One rank of phases 19, 21 and 22 (a process of
+    """One rank of phases 21, 23 and 24 (a process of
     ``torch.multiprocessing.spawn``): gloo with a ``file://`` store, its
-    tensors on the job's device, its work ``job["work"]`` (phase 19's by
+    tensors on the job's device, its work ``job["work"]`` (phase 21's by
     default)."""
     import torch.distributed as dist
 
@@ -1418,17 +1438,17 @@ def spawn_ranks(fn, world: int, job: dict, out: Path, timeout_s: float) -> list:
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-# -- phases 20-22: eref and the pipeline across devices -------------------------
-ACROSS_RANKS = 2   # two processes sharing the one card (phases 21-22)
+# -- phases 22-24: eref and the pipeline across devices -------------------------
+ACROSS_RANKS = 2   # two processes sharing the one card (phases 23-24)
 ACROSS_TIMEOUT_S = 600
 #: scan_hits' integer operations a position (hashing, about 40); window_hits' (10)
 SCAN_HITS_OPS, WINDOW_HITS_OPS = 40, 10
 
 
 def split_reads(fq: Path) -> list:
-    """The records of phase 7's reads.fastq alternately into r1.fastq and
+    """The records of phase 8's reads.fastq alternately into r1.fastq and
     r2.fastq beside it (once): the pair ``run_search`` reads.  Their union
-    is phase 7's reads, so their table is phase 7's and so are the hits;
+    is phase 8's reads, so their table is phase 8's and so are the hits;
     two copies of reads.fastq would count every read twice."""
     pair = [fq.with_name("r1.fastq"), fq.with_name("r2.fastq")]
     if not pair[1].exists():
@@ -1462,7 +1482,7 @@ def probe_reads(h: torch.Tensor, lo: int, size: int, filt) -> tuple:
     return int(mine.sum()), int(((filt.words[bit >> 5] >> (bit & 31)) & 1).sum())
 
 
-#: the mesh sizes whose shard ranges phase 20 times scan_hits at
+#: the mesh sizes whose shard ranges phase 22 times scan_hits at
 SHARD_WORLDS = (1, 2, 4)
 #: K4's sharded Phase B in csrc/good_windows.cu, whose ptxas lines phase 2 checks
 SHARDED_ENTRIES = ("hit_filter_kernel", "scan_hits_kernel", "window_hits_kernel")
@@ -1487,7 +1507,7 @@ def window_hits_bound(positions: int) -> tuple:
 
 
 def copy_pipeline_world(world: dict, src: Path, dst: Path) -> Path:
-    """Phase 14's world copied to ``dst`` before phase 15 writes into it,
+    """Phase 16's world copied to ``dst`` before phase 17 writes into it,
     its config pointed at the copy; returns the copy's config."""
     import shutil
 
@@ -1498,7 +1518,7 @@ def copy_pipeline_world(world: dict, src: Path, dst: Path) -> Path:
 
 
 def _eref_rank_work(rank: int, job: dict, out: Path) -> dict:
-    """Phase 21 on one rank: ``run_search(mesh=...)`` and
+    """Phase 23 on one rank: ``run_search(mesh=...)`` and
     ``run_search_distributed`` at (2, 1), each with the launch counters and
     ``collectives.TIMING`` reset just before and read just after (TIMING
     synchronizes around each collective), its hits, Phase A and B seconds,
@@ -1567,7 +1587,7 @@ def _eref_rank_work(rank: int, job: dict, out: Path) -> dict:
 
 
 def _pipeline_rank_work(rank: int, job: dict, out: Path) -> dict:
-    """Phase 22 on one rank: ``run_pipeline(cfg, mesh=...)`` at (2, 1) with
+    """Phase 24 on one rank: ``run_pipeline(cfg, mesh=...)`` at (2, 1) with
     the launch counters reset just before and read just after, its seconds
     by step and its peak device memory."""
     from palace_tpu_torch.config import PalaceConfig
@@ -2125,7 +2145,119 @@ class Smoke:
                    f"max |dp| {err:.3g} <= {PROB_ATOL}, spread {np.ptp(want):.3f}")
         self.records["cpu_err_float32"] = err
 
-    # -- phases 6-11: the eref slice ----------------------------------------
+    def launched(self, what: str, launches: dict, want: dict) -> None:
+        """Check that a run launched each named kernel as often as ``want``
+        says (the counters read just after it)."""
+        for name, n in want.items():
+            self.check(launches[name] == n, f"{what} launched {name} {n} time(s) "
+                                            f"({launches[name]} launches)")
+
+    def counted(self, fn):
+        """``fn()`` with the launch counters reset just before it and read
+        just after: (its result, the launches)."""
+        from palace_tpu_torch.ops import kernels
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(kernels.LAUNCHES)
+
+    # -- phase 6: the public names of the scorer's path ----------------------
+    def public_names(self, params, contigs):
+        """The names the port exports beside the scorer, on the slice's first
+        batch: ``transition_features`` on its ``seq_to_kmer_locs`` padded,
+        ``features_from_codes`` and ``features_from_packed``, each one
+        launch of K1's padded-codes entry, bit-equal to the byte entry and
+        to the plain version; the codes entry on random codes with codes
+        outside [0, 64) and n_locs of 0 and L; ``encode_batch`` and
+        ``encode_sequences`` (the byte entry); ``phage_probabilities`` at
+        ``GCNConfig()`` in float32 (K2 once, K3 three times) within
+        ``PROB_ATOL`` of ``score_codes``; and the codes entry's time."""
+        from palace_tpu_torch.models import phage_probabilities
+        from palace_tpu_torch.models.scoring import score_codes
+        from palace_tpu_torch.ops import encoder, kernels
+
+        dev, seqs = self.dev, [s for _, s in contigs[:BATCH]]
+        want = encoder.features_from_bytes(*(t.to(dev) for t in encoder.byte_batch(seqs)))
+        codes, n_codes, lens = encoder.seqs_to_code_batch(seqs)
+        L = codes.shape[1] - 2  # the width of locs_from_codes
+        padded = np.zeros((len(seqs), L), np.int32)
+        for i, s in enumerate(seqs):
+            row = encoder.seq_to_kmer_locs(s)[0]
+            padded[i, :len(row)] = row
+        n_locs = np.maximum(n_codes - 2, 0).astype(np.int32)
+        locs_d, n_d = torch.from_numpy(padded).to(dev), torch.from_numpy(n_locs).to(dev)
+        lens_d = torch.from_numpy(lens).to(dev)
+        plain = encoder.scale_by_length(
+            kernels.transition_counts_plain(locs_d, n_d).reshape(len(seqs), -1), lens_d)
+        self.check(torch.equal(plain, want), "the codes entry's plain version equals the byte "
+                                             f"entry on {len(seqs)} contigs")
+        runs = {"transition_features": lambda: encoder.transition_features(locs_d, n_d, lens_d),
+                "features_from_codes": lambda: encoder.features_from_codes(codes, n_codes, lens,
+                                                                           dev),
+                "features_from_packed": lambda: encoder.features_from_packed(
+                    *encoder.pack_contigs(seqs), device=dev)}
+        total = dict.fromkeys(kernels.LAUNCHES, 0)
+        for name, run in runs.items():
+            got, launches = self.counted(run)
+            total = {k: total[k] + launches[k] for k in total}
+            self.launched(f"public names: {name}", launches, {"transition_counts_codes": 1})
+            self.check(got.device == want.device and torch.equal(got, want),
+                       f"{name} on {tuple(padded.shape)} codes bit-equal to the byte entry and "
+                       f"to its plain version")
+
+        rng = np.random.default_rng(SEED + 3)  # random codes, not 3-mer chains
+        rand = rng.integers(0, 64, (len(seqs), L), dtype=np.int32)
+        bad = rng.random(rand.shape) < 0.01
+        rand[bad] = rng.choice(np.array([-1, -7, 64, 70, 1 << 30], np.int32), int(bad.sum()))
+        n_rand = rng.integers(0, L + 1, len(seqs)).astype(np.int32)
+        n_rand[0], n_rand[-1] = 0, L
+        rand_d, n_rand_d = torch.from_numpy(rand).to(dev), torch.from_numpy(n_rand).to(dev)
+        got = kernels.transition_counts(rand_d, n_rand_d)
+        self.check(torch.equal(got, kernels.transition_counts_plain(rand_d, n_rand_d)),
+                   f"the codes entry equals its plain version on random codes, {int(bad.sum())} "
+                   f"outside [0, 64), n_locs of 0 and L")
+
+        got, launches = self.counted(lambda: encoder.encode_batch(seqs, dev))
+        self.launched("public names: encode_batch", launches, {"transition_counts": 1})
+        self.check(torch.equal(got, want), "encode_batch bit-equal to features_from_bytes")
+        got, launches = self.counted(lambda: encoder.encode_sequences(seqs, 64, dev))
+        self.launched("public names: encode_sequences", launches,
+                      {"transition_counts": -(-len(seqs) // 64)})
+        self.check(isinstance(got, np.ndarray) and np.array_equal(got, want.cpu().numpy()),
+                   f"encode_sequences over {len(seqs)} contigs in batches of 64 equal to it")
+
+        probs, launches = self.counted(lambda: phage_probabilities(params, want))
+        self.launched("public names: phage_probabilities", launches,
+                      {"sage_rounds": 1, "conv_head": 3})
+        ref = score_codes(params, seqs, device=dev)
+        err = float((probs - ref).abs().max())
+        self.check(probs.shape == (len(seqs),) and bool(torch.isfinite(probs).all())
+                   and err <= PROB_ATOL,
+                   f"phage_probabilities at GCNConfig() in float32 within {PROB_ATOL} of "
+                   f"score_codes: max |dp| {err:.3g}")
+
+        def codes_entry():
+            return kernels.transition_counts(locs_d, n_d)
+
+        def codes_plain():
+            return kernels.transition_counts_plain(locs_d, n_d)
+
+        counts = codes_entry()
+        pairs = float(sum(torch.clamp(n_d.long() - 3 - d, min=0).sum() for d in range(3)))
+        rec = dict(dtype="int32 codes in, float32 out",
+                   max_abs_err=float((counts - codes_plain()).abs().max()),
+                   ms=cuda_ms(codes_entry, 20), plain_ms=cuda_ms(codes_plain, 3),
+                   bound=bound(nbytes(locs_d, n_d, counts), pairs, torch.float32),
+                   library_ms=None)
+        self.records["transition_counts/codes"] = rec
+        self.records["public_names"] = dict(launches=total, phage_err=err)
+        say(f"  K1 codes entry on {tuple(padded.shape)} codes: kernel {rec['ms']:.4f} ms, "
+            f"bound {rec['bound'][0]:.4f} ms ({rec['bound'][1]}), plain {rec['plain_ms']:.4f} ms, "
+            f"library: none; launches on the three entries {total['transition_counts_codes']}")
+
+    # -- phases 7-13: the eref slice ----------------------------------------
     def eref_world(self, tmp: Path):
         from palace_tpu_torch.search.index import build_index
 
@@ -2466,6 +2598,54 @@ class Smoke:
             plain_ms=tot["plain_ms"], bound=(tot["bound"], "bytes"), library_ms=None,
             chunks=len(picked))
 
+    def window_names(self, world, table):
+        """``window.good_windows_batch`` on the counts and uint32 hashes of
+        phase 9's chunks, cut to a length that is not a multiple of 8, against
+        its CPU route, one ``good_windows`` launch a call; ``window.good_windows``
+        on one reference row; ``compute_hashes_for_seq`` on a phagedb reference
+        on the card against the CPU."""
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.io.fasta import iter_fasta
+        from palace_tpu_torch.ops import window
+        from palace_tpu_torch.search.eref import DeviceDB, chunk_inputs, plan_chunks
+        from palace_tpu_torch.search.index import compute_hashes_for_seq
+
+        index = world[0]
+        params = KmerParams(k=EREF_K)
+        args = window.window_thresholds(params.window, params.hit_ratio,
+                                        params.perfect_hit_ratio) + (params.least_depth,)
+        db = DeviceDB(index, self.dev)
+        t0 = time.perf_counter()
+        picked = picked_chunks(plan_chunks(index))
+        for target, refs, rows in picked:
+            counts, hashes = chunk_inputs(db, table, target, refs, rows)
+            L = target - 3
+            c = counts[:, :L].cpu().numpy()
+            h = hashes[:, :L].cpu().numpy().astype(np.uint32)
+            got, launches = self.counted(
+                lambda: window.good_windows_batch(c, h, params.window, *args, device=self.dev))
+            self.launched(f"window names: good_windows_batch on {rows} × {L}", launches,
+                          {"good_windows": 1})
+            want = window.good_windows_batch(c, h, params.window, *args, device="cpu")
+            self.check(got.device.type == self.dev.type and torch.equal(got.cpu(), want),
+                       f"good_windows_batch on {rows} rows × {L} positions, uint32 hashes, "
+                       f"equal to its CPU route ({int(want.sum())} good)")
+        n = min(int(index.lengths[refs[0]]), L)  # the last chunk's first reference
+        one, launches = self.counted(lambda: window.good_windows(
+            counts[0, :n], hashes[0, :n], params.window, *args))
+        self.launched("window names: good_windows", launches, {"good_windows": 1})
+        self.check(torch.equal(one.cpu(), window.good_windows_batch(
+            c[:1, :n], h[:1, :n], params.window, *args, device="cpu")[0]),
+                   f"good_windows on one reference row of {n} positions")
+        name, seq = next(iter_fasta(world[1].parent / "db.fasta"))
+        card = compute_hashes_for_seq(seq, index.perm, index.k, device=self.dev)
+        cpu = compute_hashes_for_seq(seq, index.perm, index.k, device="cpu")
+        self.check(card.dtype == np.uint32 and np.array_equal(card, cpu),
+                   f"compute_hashes_for_seq on {name} ({len(seq)} bp) on the card equals "
+                   f"the CPU's")
+        say(f"  window names over {len(picked)} chunks and one reference: "
+            f"{time.perf_counter() - t0:.1f} s")
+
     def per_reference_scan(self, world, table, hits):
         """``good_windows``' own path: ``scan_reference`` over each planted
         reference's counts and hashes (``chunk_inputs`` of a chunk of one),
@@ -2598,7 +2778,7 @@ class Smoke:
         self.records["phase_b_profile"] = dict(spans=spans, busy_ms=busy, chunks=len(chunks),
                                                wall_ms=wall_ms)
 
-    # -- phases 12-13: the graph path (host) ---------------------------------
+    # -- phases 14-15: the graph path (host) ---------------------------------
     def graph_world(self, tmp: Path) -> dict:
         t0 = time.perf_counter()
         world = make_graph_world(tmp, GRAPH_CONTIGS, GRAPH_RECORDS, GRAPH_SEED)
@@ -2666,7 +2846,7 @@ class Smoke:
                                           solvers=solvers, networkx=nx_version,
                                           junctions=len(junctions), paths=len(fasta))
 
-    # -- phases 14-15: the pipeline -----------------------------------------
+    # -- phases 16-17: the pipeline -----------------------------------------
     def pipeline_world(self, tmp: Path) -> dict:
         t0 = time.perf_counter()
         world = make_pipeline_world(tmp, PIPELINE_SEED, PIPELINE_PHAGES, PIPELINE_OTHERS,
@@ -2790,7 +2970,7 @@ class Smoke:
             found=found, others=others, final_bytes=final.read_bytes(),
             scores=([n for n, _ in rows], probs))
 
-    # -- phases 16-17: training -------------------------------------------
+    # -- phases 18-19: training -------------------------------------------
     def train_world(self) -> dict:
         """``make_contigs(2048, 10 kb, gc_spread)``, labelled 1 above the
         median GC share; their features through K1 on the card with the
@@ -3071,14 +3251,14 @@ class Smoke:
                                           kernel_ms=kernel_ms,
                                           contigs_per_s=TRAIN_BATCH / ms * 1e3)
 
-    # -- phases 18-19: the GCN across devices ------------------------------
+    # -- phases 20-21: the GCN across devices ------------------------------
     def mesh_one_rank(self, tmp: Path) -> dict:
-        """Phase 18: a one-rank process group (NCCL on a card, gloo on the
+        """Phase 20: a one-rank process group (NCCL on a card, gloo on the
         CPU) and its (1, 1) mesh: ``score_sequences(mesh=...)`` on the mesh
         world in float32 and bfloat16 (the launch counters reset just before
         and read just after) against the same call without a mesh, and one
         ``train_step`` against the same step without one.  Returns the
-        probabilities without a mesh, which phase 19 holds its ranks to."""
+        probabilities without a mesh, which phase 21 holds its ranks to."""
         import torch.distributed as dist
 
         from palace_tpu_torch.models.scoring import score_sequences
@@ -3158,10 +3338,10 @@ class Smoke:
                        f"largest {d['param_diff']:.3g} (<= 2·lr)")
 
     def mesh_two_ranks(self, refs: dict, tmp: Path) -> None:
-        """Phase 19: ``MESH_RANKS`` processes on the one card under gloo
+        """Phase 21: ``MESH_RANKS`` processes on the one card under gloo
         with its tensors on the card (NCCL will not put two ranks on one
         card), each layout of ``MESH_MODEL_PARALLEL``: the scorer against
-        phase 18's one-rank probabilities, K1-K3 launched on every rank,
+        phase 20's one-rank probabilities, K1-K3 launched on every rank,
         one ``train_step`` against the one-rank step, and under (1, ranks)
         a checkpoint restored on one rank equal to the gathered state.  Its
         contigs/s and memory are of processes that share one card: not
@@ -3221,14 +3401,14 @@ class Smoke:
                    f"on the card byte-identical to the CPU's")
 
 
-    # -- phases 20-22: eref and the pipeline across devices --------------------
+    # -- phases 22-24: eref and the pipeline across devices --------------------
     def eref_mesh_one_rank(self, world, tmp: Path) -> None:
-        """Phase 20: a one-rank process group (NCCL on a card, gloo on the
-        CPU) and its mesh on phase 6's world: ``run_search(mesh=...)`` with
+        """Phase 22: a one-rank process group (NCCL on a card, gloo on the
+        CPU) and its mesh on phase 7's world: ``run_search(mesh=...)`` with
         the launch counters reset just before and read just after, against
-        phase 7's hits and ``ref_names.txt``; then ``scan_hits`` and
+        phase 8's hits and ``ref_names.txt``; then ``scan_hits`` and
         ``window_hits`` against their plain versions on real chunks, timed
-        beside ``scan_chunk``.  Saves the index for phase 21's ranks."""
+        beside ``scan_chunk``.  Saves the index for phase 23's ranks."""
         import torch.distributed as dist
 
         from palace_tpu_torch.config import KmerParams
@@ -3247,7 +3427,7 @@ class Smoke:
         try:
             mesh = make_mesh(device=self.dev.type)
             say(f"  one rank, backend {dist.get_backend()}, (data, model) = ({mesh.dp}, "
-                f"{mesh.mp}) on {mesh.device}; the reads of phase 7 as {fqs[0].name} + "
+                f"{mesh.mp}) on {mesh.device}; the reads of phase 8 as {fqs[0].name} + "
                 f"{fqs[1].name}")
             if cuda:
                 torch.cuda.empty_cache()
@@ -3265,7 +3445,7 @@ class Smoke:
             self.check(len(hits) == EREF_JAX_HITS and out.read_bytes()
                        == self.records["eref"]["ref_names"],
                        f"one rank: {len(hits)} hits ({EREF_JAX_HITS} from the JAX package), "
-                       f"ref_names.txt byte-identical to phase 7's")
+                       f"ref_names.txt byte-identical to phase 8's")
             self.check(launches["scan_hits"] == launches["window_hits"] == n_chunks
                        and launches["scan_chunk"] == 0 and launches["hit_filter"] == 1,
                        f"one rank: launched scan_hits and window_hits once a chunk and "
@@ -3444,10 +3624,10 @@ class Smoke:
         return ms if any(ms.values()) else None
 
     def eref_mesh_two_ranks(self, world, tmp: Path) -> None:
-        """Phase 21: ``ACROSS_RANKS`` processes on the one card under gloo with
+        """Phase 23: ``ACROSS_RANKS`` processes on the one card under gloo with
         their tensors on the card, at (2, 1): ``run_search(mesh=...)`` and
         ``run_search_distributed`` on every rank, each rank's hits and its
-        shard held to phase 7's, ``ref_names.txt`` written by rank 0 alone,
+        shard held to phase 8's, ``ref_names.txt`` written by rank 0 alone,
         ``scan_hits`` and ``window_hits`` launched once a chunk on every
         rank; Phase A and B seconds, the collectives' ms and bytes and each
         rank's peak memory, of processes sharing one card (not scaling)."""
@@ -3468,7 +3648,7 @@ class Smoke:
                 rec = r["runs"][name]
                 what = f"{name}, rank {r['rank']} {r['coords']}"
                 self.check(rec["hits"] == lines and len(rec["hits"]) == EREF_JAX_HITS,
-                           f"{what}: {len(rec['hits'])} hits, phase 7's")
+                           f"{what}: {len(rec['hits'])} hits, phase 8's")
                 self.check(rec["shard"][1], f"{what}: its shard of {rec['shard'][0]} bytes "
                                             f"equals its block of a one-device table")
                 la = rec["launches"]
@@ -3486,13 +3666,13 @@ class Smoke:
             self.check(files == [f"ref_names.{name}.rank0.txt"]
                        and (out / files[0]).read_bytes() == want,
                        f"{name}: ref_names.txt written by rank 0 alone ({files}), "
-                       f"byte-identical to phase 7's")
+                       f"byte-identical to phase 8's")
         self.records["eref_two_ranks"] = ranks
 
     def pipeline_mesh(self, config: Path, tmp: Path) -> None:
-        """Phase 22: ``run_pipeline(cfg, mesh=...)`` on a copy of phase 14's
+        """Phase 24: ``run_pipeline(cfg, mesh=...)`` on a copy of phase 16's
         world, ``ACROSS_RANKS`` processes on the one card under gloo at
-        (2, 1): the final FASTA byte-identical to phase 15's,
+        (2, 1): the final FASTA byte-identical to phase 17's,
         ``node_scores.out`` within ``PROB_ATOL`` of it, K1-K3 launched a
         scoring batch and ``scan_hits``/``window_hits`` a chunk on every
         rank; each step's seconds."""
@@ -3509,13 +3689,13 @@ class Smoke:
         final = out["final_fasta"]
         self.check(all(r["final"] == str(final) for r in ranks)
                    and final.read_bytes() == ref["final_bytes"],
-                   f"{final.name} across {ACROSS_RANKS} ranks byte-identical to phase 15's")
+                   f"{final.name} across {ACROSS_RANKS} ranks byte-identical to phase 17's")
         rows = [line.split("\t") for line in out["node_score"].read_text().splitlines()]
         names, probs = [n for n, _ in rows], np.array([float(p) for _, p in rows])
         err = float(np.abs(probs - ref["scores"][1]).max()) if names == ref["scores"][0] \
             else float("inf")
         self.check(err <= PROB_ATOL, f"node_scores.out: the same contigs in order, max |dp| "
-                                     f"{err:.3g} from phase 15's <= {PROB_ATOL}")
+                                     f"{err:.3g} from phase 17's <= {PROB_ATOL}")
         n, c = ref["n_batches"], ref["n_chunks"]
         for r in ranks:
             la = r["launches"]
@@ -3532,9 +3712,9 @@ class Smoke:
 
 
 def run_across_devices_phases(smoke: Smoke, eref_world, pipeline_config, tmp: Path) -> None:
-    """Phases 20-22, after the card is freed of the earlier phases' models:
-    eref on phase 6's world (kept in ``tmp``), one rank then two, and the
-    pipeline on the copy of phase 14's world."""
+    """Phases 22-24, after the card is freed of the earlier phases' models:
+    eref on phase 7's world (kept in ``tmp``), one rank then two, and the
+    pipeline on the copy of phase 16's world."""
     import gc
 
     gc.collect()
@@ -3561,8 +3741,8 @@ def run_graph_phases(smoke: Smoke) -> None:
 
 
 def run_pipeline_phases(smoke: Smoke, keep: Path | None = None) -> Path | None:
-    """Phases 14-15, the whole pipeline, in a temporary directory; with
-    ``keep``, the world is first copied there for phase 22, and the copy's
+    """Phases 16-17, the whole pipeline, in a temporary directory; with
+    ``keep``, the world is first copied there for phase 24, and the copy's
     config returned."""
     twin = None
     with tempfile.TemporaryDirectory() as tmp:
@@ -3575,7 +3755,7 @@ def run_pipeline_phases(smoke: Smoke, keep: Path | None = None) -> Path | None:
 
 
 def run_train_phases(smoke: Smoke) -> None:
-    """Phases 16-17, training, after the card is freed of the earlier
+    """Phases 18-19, training, after the card is freed of the earlier
     phases' tables and models; checkpoints in a temporary directory."""
     import gc
 
@@ -3597,7 +3777,7 @@ def run_train_phases(smoke: Smoke) -> None:
 
 
 def run_mesh_phases(smoke: Smoke) -> None:
-    """Phases 18-19, the GCN across devices, after the card is freed of the
+    """Phases 20-21, the GCN across devices, after the card is freed of the
     earlier phases' models; stores and checkpoints in a temporary
     directory."""
     import gc
@@ -3613,7 +3793,7 @@ def run_mesh_phases(smoke: Smoke) -> None:
 
 
 def run_phases(smoke: Smoke) -> None:
-    """Phases 3 and 4 on ``smoke.dev``."""
+    """Phases 3-6 on ``smoke.dev``."""
     from palace_tpu_torch.models.gcn import init_params
 
     with torch.inference_mode():
@@ -3629,11 +3809,12 @@ def run_phases(smoke: Smoke) -> None:
         smoke.phase("slice", smoke.slice, params, contigs)
         smoke.phase("where the time goes", smoke.where_the_time_goes, params, contigs)
         smoke.phase("slice against the plain versions", smoke.slice_against_plain, params)
+        smoke.phase("public names on the card", smoke.public_names, params, contigs)
 
 
 def run_eref_phases(smoke: Smoke, keep: Path | None = None):
-    """Phases 6-11 on ``smoke.dev``, in a temporary directory, or with the
-    eref world in ``keep``, returned for phases 20-21."""
+    """Phases 7-13 on ``smoke.dev``, in a temporary directory, or with the
+    eref world in ``keep``, returned for phases 22-23."""
     with torch.inference_mode(), tempfile.TemporaryDirectory() as tmp:
         world = smoke.phase("eref world", smoke.eref_world, keep or Path(tmp))
         table, hits = (world and smoke.phase("eref slice", smoke.eref_slice, world)) or (None, [])
@@ -3641,6 +3822,7 @@ def run_eref_phases(smoke: Smoke, keep: Path | None = None):
         if table:
             smoke.phase("K4 fused on real chunks", smoke.scan_chunk_on_real_chunks, world, table)
             smoke.phase("K4 at the main path's shapes", smoke.k4_at_main_shapes, world, table)
+            smoke.phase("window and hash names on the card", smoke.window_names, world, table)
             smoke.phase("per-reference scan", smoke.per_reference_scan, world, table, hits)
             smoke.phase("Phase A with the native loader", smoke.phase_a_native, world)
             smoke.phase("where Phase A's time goes", smoke.phase_a_split, world)
@@ -3703,10 +3885,13 @@ def main() -> int:
                     window_hits=smoke.records["eref_mesh"]["launches"]["window_hits"],
                     hit_filter=smoke.records["eref_mesh"]["launches"]["hit_filter"])
     # and the float32 routes of K2 and K3, the pipeline's default dtype, in the
-    # float32 slice
+    # float32 slice; K1's padded-codes entry in its phase
     f32 = {f"{k}/float32": KERNELS[k] for k in ("sage_rounds", "conv_head")}
     for name in f32:
         launches[name] = smoke.records["slice_float32"]["launches"][name.split("/")[0]]
+    f32["transition_counts/codes"] = KERNELS["transition_counts"]
+    launches["transition_counts/codes"] = \
+        smoke.records["public_names"]["launches"]["transition_counts_codes"]
     rows = []
     for name, (source, replaces) in dict(KERNELS, **f32).items():
         rec = smoke.records[name]

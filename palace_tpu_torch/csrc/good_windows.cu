@@ -77,7 +77,7 @@
 // position, three bits, and needs no halo: its blocks take kScanTile
 // positions and hash them as scan_chunk's step 1b does.  The first design
 // read the shard for every in-range hash, a floor of 1.20 ms at a 32-byte
-// sector each for phase 20's 125.7 M at world 1; this one's bound counts
+// sector each for phase 22's 125.7 M at world 1; this one's bound counts
 // the filter once and a sector for each shard read behind a set bit (14.3 M
 // there), and leaves the filter's probes, which the L2 serves, to a term of
 // their own.
@@ -92,7 +92,7 @@
 // a 2^27-bit (16 MiB) bitmap, bit i mod 2^27 set where slot i counts
 // least_depth, and scan_hits reads the bitmap for every in-range hash, 24
 // reads a thread in flight, and the shard only behind a set bit (5.5 % of
-// the bits at k = 32 on phase 20's table).  A queue of those shard reads in
+// the bits at k = 32 on phase 22's table).  A queue of those shard reads in
 // shared memory, drained once a block, ran slower: the drain's wait was not
 // hidden.  palace_window_hits reads the 0.375 B and writes the 0.125 B of flags,
 // and never leaves the bits: a window sum is a difference of two prefix

@@ -1,8 +1,26 @@
-// K1: 3-mer transition features straight from a batch of ASCII rows.
-// Replaces transition_counts_pallas (palace_tpu/ops/pallas_kernels.py)
-// together with the host packing before it (palace_tpu/ops/encoder.py
-// pack_contigs) and the unpack and scale around it (features_from_packed).
+// K1: 3-mer transition counts, in two entries.
 //
+// palace_transition_features, the scorer's: straight from a batch of ASCII
+// rows.  It replaces transition_counts_pallas (palace_tpu/ops/
+// pallas_kernels.py) together with the host packing before it
+// (palace_tpu/ops/encoder.py pack_contigs) and the unpack and scale around
+// it (features_from_packed).
+//
+// palace_transition_counts_codes, at the Pallas kernel's own interface:
+// padded (B, L) int32 3-mer codes and (B,) int32 n_locs → (B, 3, 64, 64)
+// float32 M_d[u,v] = #{i : i + 3 + d < n, loc[i] = u, loc[i+3+d] = v} with
+// n = min(n_locs, L); a pair with a code outside [0, 64) counts nothing.
+// The codes need not be a sequence's overlapping 3-mers.  A row is cut
+// into tiles of `tile` codes, one block a tile; a block turns its codes
+// and the 5 past its tile into bytes in shared memory (a bad code as
+// kBadCode) and counts them as the byte entry does, into its shared
+// histogram through the last-4-bins register cache.  A row of one tile
+// stores its histogram as float32; a row of several adds its non-zero
+// bins into its output row, zeroed before and held as int32, and the last
+// of its tiles to finish converts it in place.  Integer work: the result
+// equals the plain version bit for bit.
+//
+// The byte entry in detail:
 // Input: the rows' bytes concatenated, row b = data[offsets[b],
 // offsets[b+1]), and each row's length in characters (seq_lens).  Bytes
 // other than ACGTacgt are dropped, shifting positions (encode.pyx:8-20);
@@ -37,12 +55,14 @@
 
 namespace {
 
-constexpr int kMat = 64 * 64;
+constexpr int kCodes = 64;
+constexpr int kMat = kCodes * kCodes;
 constexpr int kBins = 3 * kMat;
 constexpr int kThreads = 512;
 constexpr int kChunk = 16 * kThreads;  // bytes compacted a step
 constexpr int kBuf = kChunk + 64;      // codes: up to 7 kept + a chunk + window reads
 constexpr int kPlanThreads = 256;
+constexpr int kMaxCodeTile = 65536;  // codes a block of the codes entry
 
 __device__ __forceinline__ int tiles_of(int64_t len, int tile) {
   return len > tile ? (int)((len + tile - 1) / tile) : 1;
@@ -295,7 +315,111 @@ __global__ void __launch_bounds__(kThreads, 2) transition_features_kernel(
   }
 }
 
+constexpr unsigned kBadCode = 0xFFu;  // a code outside [0, 64) in the staged bytes
+
+__global__ void __launch_bounds__(kThreads, 2) transition_counts_codes_kernel(
+    const int* __restrict__ locs, const int* __restrict__ n_locs, int* __restrict__ done,
+    float* __restrict__ out, int64_t L, int tile, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* hist = reinterpret_cast<int*>(smem);
+  uint8_t* buf = smem + kBins * sizeof(int);
+  __shared__ int s_last;
+
+  const int b = blockIdx.x / tiles;
+  const int64_t lo = (int64_t)(blockIdx.x % tiles) * tile;
+  const int64_t n = min(max((int64_t)n_locs[b], (int64_t)0), L);
+  // own positions [lo, lo + own); codes staged [lo, lo + have), 5 past the
+  // tile for the pairs of its last positions
+  const int own = (int)max(min(lo + tile, n) - lo, (int64_t)0);
+  const int have = (int)max(min(lo + tile + 5, n) - lo, (int64_t)0);
+  const int* row = locs + b * L + lo;
+
+  for (int k = 4 * threadIdx.x; k < kBins; k += 4 * kThreads)
+    *reinterpret_cast<int4*>(hist + k) = make_int4(0, 0, 0, 0);
+  for (int k = threadIdx.x; k < have; k += kThreads) {
+    const int c = __ldg(row + k);
+    buf[k] = (unsigned)c < (unsigned)kCodes ? (uint8_t)c : (uint8_t)kBadCode;
+  }
+  __syncthreads();
+
+  Recent recent[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) recent[d].init();
+  for (int p0 = 16 * threadIdx.x; p0 < own; p0 += 16 * kThreads) {
+    const uint4 v = *reinterpret_cast<const uint4*>(buf + p0);
+    const uint2 x = *reinterpret_cast<const uint2*>(buf + p0 + 16);
+    const uint32_t wd[6] = {v.x, v.y, v.z, v.w, x.x, x.y};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (p0 + j >= own) break;
+#define CODE(k) ((wd[(k) >> 2] >> (8 * ((k) & 3))) & 0xFFu)
+      const unsigned u = CODE(j);
+      if (u == kBadCode) continue;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const unsigned w = CODE(j + 3 + d);
+        if (p0 + j + 3 + d < have && w != kBadCode)
+          recent[d].add(hist, d * kMat + (int)(u * kCodes + w));
+      }
+#undef CODE
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) recent[d].flush(hist);
+  __syncthreads();
+
+  float* o = out + (size_t)b * kBins;
+  if (tiles == 1) {
+    for (int k = 4 * threadIdx.x; k < kBins; k += 4 * kThreads) {
+      const int4 h = *reinterpret_cast<const int4*>(hist + k);
+      *reinterpret_cast<float4*>(o + k) =
+          make_float4((float)h.x, (float)h.y, (float)h.z, (float)h.w);
+    }
+    return;
+  }
+  int* acc = reinterpret_cast<int*>(o);
+  for (int k = threadIdx.x; k < kBins; k += kThreads)
+    if (hist[k]) atomicAdd(&acc[k], hist[k]);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&done[b], 1) == tiles - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int k = 4 * threadIdx.x; k < kBins; k += 4 * kThreads) {
+    const int4 h = __ldcg(reinterpret_cast<const int4*>(acc + k));  // the sums, from L2
+    *reinterpret_cast<float4*>(o + k) =
+        make_float4((float)h.x, (float)h.y, (float)h.z, (float)h.w);
+  }
+}
+
 }  // namespace
+
+// K1 at the Pallas kernel's interface.  scratch: B int32 (each row's
+// finished tiles); `tile` codes a block, at most kMaxCodeTile.
+extern "C" int palace_transition_counts_codes(const void* locs, const void* n_locs, void* scratch,
+                                              void* out, int B, long long L, int tile,
+                                              void* stream) {
+  if (B == 0) return 0;
+  if (tile < 16 || tile > kMaxCodeTile || L < 0) return (int)cudaErrorInvalidValue;
+  const long long tiles = L > tile ? (L + tile - 1) / tile : 1;
+  if ((long long)B * tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  // the histogram, then the tile's codes and 5 more as bytes, read 24 at a time
+  const int smem = kBins * (int)sizeof(int) + (tile + 15) / 16 * 16 + 32;
+  cudaError_t err = cudaFuncSetAttribute(
+      transition_counts_codes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tiles > 1) {  // rows of several tiles add into their zeroed output rows
+    err = cudaMemsetAsync(scratch, 0, (size_t)B * sizeof(int), s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(out, 0, (size_t)B * kBins * sizeof(float), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  transition_counts_codes_kernel<<<(unsigned)(B * tiles), kThreads, smem, s>>>(
+      (const int*)locs, (const int*)n_locs, (int*)scratch, (float*)out, (int64_t)L, tile,
+      (int)tiles);
+  return (int)cudaGetLastError();
+}
 
 // scratch: 2B + 1 int32 (each row's first tile, then its finished tiles)
 extern "C" int palace_transition_features(const void* data, const void* offsets,

@@ -30,6 +30,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def input_device(x, device: str | torch.device | None = None) -> torch.device:
+    """Where a function that takes tensors or host arrays runs: ``device``
+    if given, else the tensor ``x``'s own device, else the CUDA card."""
+    if device is None and isinstance(x, torch.Tensor):
+        return x.device
+    return resolve_device("cuda" if device is None else device)
+
+
 def device_info() -> dict:
     """Name, count and power limit of the CUDA cards, for the numbers the
     port prints.  ``nvidia_smi`` is the raw

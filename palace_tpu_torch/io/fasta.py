@@ -44,6 +44,10 @@ def iter_fasta(path: str | Path) -> Iterator[Tuple[str, str]]:
         yield name, "".join(chunks)
 
 
+def read_fasta_dict(path: str | Path) -> Dict[str, str]:
+    return dict(iter_fasta(path))
+
+
 def iter_fastq(path: str | Path) -> Iterator[Tuple[str, str, str]]:
     """Yield ``(name, sequence, quality)`` from a FASTQ file (optionally gzip);
     the name stops at the first ``/``, space or tab."""
@@ -69,7 +73,7 @@ def write_fasta(path: str | Path, records: Iterable[Tuple[str, str]],
     with open(path, "w") as fh:
         for name, seq in records:
             fh.write(f">{name}\n")
-            if width > 0:
+            if width and width > 0:
                 for i in range(0, len(seq), width):
                     fh.write(seq[i : i + width] + "\n")
             else:

@@ -332,6 +332,14 @@ def forward(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
     return torch.softmax(logits, dim=1)
 
 
+def phage_probabilities(params: Params, features: torch.Tensor,
+                        cfg: GCNConfig = DEFAULT_CONFIG) -> torch.Tensor:
+    """(B, 12288) encoder features → (B,) P(phage), column 1 of the eval
+    softmax (phage_scoring.py:212); on a card one launch of K2 and three
+    of K3 at depth 2."""
+    return forward(params, *model_inputs_from_features(features, cfg), cfg)[:, 1]
+
+
 @contextlib.contextmanager
 def full_float32() -> Iterator[None]:
     """Full float32 products inside the block, whatever the global flags:

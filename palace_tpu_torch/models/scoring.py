@@ -25,7 +25,7 @@ import torch
 from palace_tpu_torch.device import resolve_device
 from palace_tpu_torch.io.fasta import iter_fasta
 from palace_tpu_torch.models.gcn import DEFAULT_CONFIG, GCNConfig, GCNScorer
-from palace_tpu_torch.ops.encoder import byte_batch, features_from_bytes
+from palace_tpu_torch.ops.encoder import byte_batch, features_from_bytes, pack_contigs
 from palace_tpu_torch.parallel.collectives import gather_blocks
 from palace_tpu_torch.parallel.mesh import Mesh, shard_params_for_gcn
 from palace_tpu_torch.utils.logging import get_logger
@@ -66,6 +66,13 @@ def _host_batch(seqs: Sequence[str], device: torch.device) -> List[torch.Tensor]
 def _device_batch(host: List[torch.Tensor], device: torch.device) -> List[torch.Tensor]:
     """The byte batch on ``device``; copies to a card do not wait."""
     return [t.to(device, non_blocking=True) for t in host]
+
+
+def pack_batch(seqs: Sequence[str]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side: sequences → ``(packed uint8, n_codes, orig_lens)``, JAX's
+    scorer input (``ops.encoder.pack_contigs``); the port's scorer takes
+    ``byte_batch`` instead."""
+    return pack_contigs(seqs)
 
 
 def score_codes(params: Mapping[str, torch.Tensor], seqs: Sequence[str],

@@ -38,6 +38,8 @@ _L = ctypes.c_int64
 KERNELS = {
     "transition_counts": ("transition_counts.cu", "palace_transition_features",
                           [_P, _P, _P, _P, _P, _I, _L, _I, _P]),
+    "transition_counts_codes": ("transition_counts.cu", "palace_transition_counts_codes",
+                                [_P, _P, _P, _P, _I, _L, _I, _P]),
     "sage_rounds": ("sage_rounds.cu", "palace_sage_rounds",
                     [_P, _P, _P, _P, _I, _I, _P]),
     "conv_head": ("conv_head.cu", "palace_conv_layer",

@@ -11,14 +11,22 @@ The host only concatenates each batch's UTF-8 bytes (``byte_batch``);
 the card drops the non-ACGT bytes, counts and scales in one kernel
 (``features_from_bytes``, ``ops.kernels.transition_features_bytes``).
 The 2-bit packing of the JAX package (``pack_contigs`` and the functions
-under it) is kept beside it as that package's counterpart.
+under it) is kept beside it as that package's counterpart, and so are
+its encodes from 3-mer and base codes (``transition_features``,
+``features_from_codes``, ``features_from_packed``), which count through
+K1's padded-codes entry (``ops.kernels.transition_counts``).
+
+Functions that take tensors run where their tensors lie; given numpy or
+strings they run on ``device``, the CUDA card unless ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from palace_tpu_torch.device import input_device, resolve_device
 
 K = 3
 NUM_CODES = 64  # 4**K
@@ -37,6 +45,17 @@ for _ch, _code in (("A", 0), ("C", 1), ("G", 2), ("T", 3)):
 # else, in one C pass
 _CODE_TT = bytes(int(BASE_LUT[i]) if BASE_LUT[i] != INVALID else 0 for i in range(256))
 _CODE_DELETE = bytes(i for i in range(256) if BASE_LUT[i] == INVALID)
+
+
+def seq_to_kmer_locs(seq: str) -> Tuple[np.ndarray, int]:
+    """Host-side: a sequence → ``(int32 3-mer codes, original length)``.
+    Non-ACGT characters are dropped first (encode.pyx:8-12), so a 3-mer
+    may span a dropped character; fewer than 3 bases give no codes."""
+    codes = np.frombuffer(seq.encode().translate(_CODE_TT, _CODE_DELETE),
+                          dtype=np.uint8).astype(np.int32)
+    if codes.size < K:
+        return np.zeros(0, dtype=np.int32), len(seq)
+    return codes[:-2] * 16 + codes[1:-1] * 4 + codes[2:], len(seq)
 
 
 def byte_batch(seqs: Sequence[str], pin_memory: bool = False
@@ -123,3 +142,96 @@ def features_from_bytes(data: torch.Tensor, offsets: torch.Tensor,
 
     return transition_features_bytes(data, offsets, seq_lens)
 
+
+def scale_by_length(counts: torch.Tensor, seq_lens: torch.Tensor) -> torch.Tensor:
+    """(B, 12288) counts × ``100 / max(len, 1)`` a row (encode.pyx:55), the
+    quotient an IEEE division: a tensor numerator, since ``100.0 / t``
+    multiplies by a reciprocal and differs from JAX in the last bit."""
+    lens = torch.clamp(seq_lens.to(torch.float32), min=1.0)
+    return counts * (torch.full_like(lens, 100.0) / lens)[:, None]
+
+
+def _on(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x).to(dev).to(dtype)  # copied as it lies, widened there
+
+
+def transition_features(locs_padded, n_locs, seq_lens,
+                        device: str | torch.device | None = None) -> torch.Tensor:
+    """(B, L) padded 3-mer codes, (B,) valid counts and original lengths →
+    (B, 12288) float32 features scaled ×100/len (JAX ``transition_features``).
+    One launch of K1's padded-codes entry on a card (``kernels.transition_counts``:
+    a code outside [0, 64) counts in no pair; ``n_locs`` above L counts as L).
+    Tensors stay where they lie unless ``device`` is given; numpy goes to
+    ``device``, the card by default."""
+    from palace_tpu_torch.ops.kernels import transition_counts
+
+    dev = input_device(locs_padded, device)
+    counts = transition_counts(_on(locs_padded, torch.int32, dev), _on(n_locs, torch.int32, dev))
+    return scale_by_length(counts.reshape(counts.shape[0], FEATURE_DIM),
+                           _on(seq_lens, torch.float32, dev))
+
+
+def features_from_codes(codes, n_codes, seq_lens,
+                        device: str | torch.device | None = None) -> torch.Tensor:
+    """(B, L) base codes (``seqs_to_code_batch``) → (B, 12288) features:
+    ``locs_from_codes``, then ``transition_features``."""
+    dev = input_device(codes, device)
+    locs, n_locs = locs_from_codes(_on(codes, torch.int64, dev), _on(n_codes, torch.int64, dev))
+    return transition_features(locs, n_locs, seq_lens, dev)
+
+
+def features_from_packed(packed, n_codes, seq_lens,
+                         device: str | torch.device | None = None) -> torch.Tensor:
+    """(B, L/4) 2-bit packed base codes (``pack_contigs``) → (B, 12288)
+    features: ``unpack_codes``, then ``features_from_codes``."""
+    dev = input_device(packed, device)
+    return features_from_codes(unpack_codes(_on(packed, torch.uint8, dev)), n_codes, seq_lens,
+                               dev)
+
+
+def encode_batch(seqs: Sequence[str], device: str | torch.device = "cuda") -> torch.Tensor:
+    """A batch of sequences → (B, 12288) float32 features on ``device``,
+    through the scorer's route (``byte_batch``, then ``features_from_bytes``):
+    the numbers of JAX ``encode_batch``, which goes through base codes."""
+    dev = resolve_device(device)
+    return features_from_bytes(*(t.to(dev) for t in byte_batch(seqs)))
+
+
+def encode_sequences(seqs: Iterable[str], batch_size: int = 64,
+                     device: str | torch.device = "cuda") -> np.ndarray:
+    """``encode_batch`` over batches of ``batch_size`` → stacked (N, 12288)
+    float32 on the host; no sequence gives (0, 12288)."""
+    out: List[np.ndarray] = []
+    chunk: List[str] = []
+    for s in seqs:
+        chunk.append(s)
+        if len(chunk) == batch_size:
+            out.append(encode_batch(chunk, device).cpu().numpy())
+            chunk = []
+    if chunk:
+        out.append(encode_batch(chunk, device).cpu().numpy())
+    if not out:
+        return np.zeros((0, FEATURE_DIM), dtype=np.float32)
+    return np.concatenate(out, axis=0)
+
+
+def reference_matrix_encoding(seq: str, k: int = K) -> np.ndarray:
+    """Pure-numpy oracle with the reference's exact per-sequence loop
+    (encode.pyx:41-55)."""
+    seq = seq.upper()
+    length = len(seq)
+    codes = BASE_LUT[np.frombuffer(seq.encode(), dtype=np.uint8)]
+    codes = codes[codes != INVALID].astype(np.int64)
+    if codes.size >= k:
+        locs = [int("".join(str(c) for c in codes[i : i + k]), 4)
+                for i in range(codes.size - k + 1)]
+    else:
+        locs = []
+    feats = []
+    for d in GAPS:
+        m = np.zeros((NUM_CODES, NUM_CODES), dtype=np.float64)
+        for i in range(0, len(locs) - k - d):
+            m[locs[i], locs[i + k + d]] += 1
+        feats.append(m.flatten())
+    feature = np.hstack(feats)
+    return feature / (length * 1.0) * 100

@@ -1,7 +1,8 @@
 """The port's CUDA kernels, each beside its plain PyTorch version: the
-scorer's K1-K3 and the eref search's K4 (``good_windows``; ``scan_chunk``,
-which fuses it with the hashing and lookup before it; and, against a table
-split over a mesh, ``scan_hits`` and ``window_hits``).
+scorer's K1-K3 (K1 also at the Pallas kernel's padded-codes interface,
+``transition_counts``) and the eref search's K4 (``good_windows``;
+``scan_chunk``, which fuses it with the hashing and lookup before it; and,
+against a table split over a mesh, ``scan_hits`` and ``window_hits``).
 
 Counterpart of ``palace_tpu/ops/pallas_kernels.py``.  Every wrapper
 takes the plain version for tensors on the CPU, and for CUDA tensors
@@ -32,6 +33,7 @@ from palace_tpu_torch.ops.encoder import (
     K,
     NUM_CODES,
     locs_from_codes,
+    scale_by_length,
 )
 from palace_tpu_torch.ops.kmer import coder_masks, kmer_hashes_masked, unpack_codes_mask
 
@@ -57,8 +59,8 @@ def _same_device(name: str, *ts: torch.Tensor) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# K1: transition counts from ASCII rows, fused with the compaction and the
-# ×100/len scale
+# K1: transition counts from padded 3-mer codes, and from ASCII rows fused
+# with the compaction and the ×100/len scale
 # ---------------------------------------------------------------------------
 
 #: bytes of a row that one block of the K1 kernel counts; longer rows are
@@ -70,12 +72,16 @@ def _pair_counts(locs: torch.Tensor, row: torch.Tensor, pos: torch.Tensor,
                  n_locs: torch.Tensor, B: int) -> torch.Tensor:
     """Flat 3-mer codes ``locs`` (M,), each at position ``pos`` of row
     ``row`` whose valid count is ``n_locs`` (M,) → (B, 3, 64, 64) float32
-    ``M_d[u, v] = #{i < n - 3 - d : locs[i] = u, locs[i+3+d] = v}``."""
+    ``M_d[u, v] = #{i < n - 3 - d : locs[i] = u, locs[i+3+d] = v}``.  A
+    pair with a code outside [0, 64) counts nothing, as JAX's one-hot
+    gives such a code no bin."""
     out = []
+    in_range = (locs >= 0) & (locs < NUM_CODES)
     for d in GAPS:
         shift = K + d
         n = max(locs.shape[0] - shift, 0)
         valid = pos[:n] < n_locs[:n] - shift  # so locs[i + shift] lies in the same row
+        valid &= in_range[:n] & in_range[shift:shift + n]
         idx = ((row[:n] * NUM_CODES + locs[:n]) * NUM_CODES + locs[shift:shift + n])[valid]
         out.append(torch.bincount(idx, minlength=B * NUM_CODES * NUM_CODES)
                    .reshape(B, NUM_CODES, NUM_CODES))
@@ -95,6 +101,52 @@ def transition_counts_plain(locs: torch.Tensor, n_locs: torch.Tensor) -> torch.T
     return _pair_counts(locs.to(torch.int64).reshape(-1), row, pos, n, B)
 
 
+#: codes of a row that one block of the codes entry counts; longer rows are
+#: split over blocks (a 10 kb contig's 3-mer codes are one tile)
+TILE_CODES = 16384
+
+
+def transition_counts(locs: torch.Tensor, n_locs: torch.Tensor) -> torch.Tensor:
+    """(B, L) int32 3-mer codes + (B,) int32 valid counts → (B, 3, 64, 64)
+    float32 ``M_d[u, v] = #{i < n - 3 - d : locs[i] = u, locs[i+3+d] = v}``
+    with ``n = min(n_locs, L)``; a pair with a code outside [0, 64) counts
+    nothing.  The codes may be any; they need not be a sequence's 3-mers.
+
+    K1 at the interface of ``transition_counts_pallas``
+    (palace_tpu/ops/pallas_kernels.py), for ``encoder.transition_features``
+    and the encodes from base codes; the scorer's path is
+    ``transition_features_bytes``.  Bound on the H100: bytes — the codes
+    read once and 48 KiB of counts a row written.  Design
+    (``csrc/transition_counts.cu``, entry ``palace_transition_counts_codes``):
+    one block a tile of ``TILE_CODES`` codes of a row, which it stages as
+    bytes in shared memory with the 5 codes past it, counting into a
+    3 × 4096 int32 shared histogram through each thread's last 4 bins in
+    registers; a row of several tiles sums them in its output row, which
+    its last tile converts.  Integer work, so it equals the plain version
+    bit for bit.  Launches count under ``transition_counts_codes``.
+    """
+    if not _same_device("transition_counts", locs, n_locs):
+        return transition_counts_plain(locs, n_locs)
+    _require(locs.dtype == torch.int32 and locs.dim() == 2,
+             "transition_counts: locs must be int32 (B, L)")
+    B, L = locs.shape
+    _require(n_locs.dtype == torch.int32 and n_locs.shape == (B,),
+             "transition_counts: n_locs must be int32 (B,)")
+    _require(16 <= TILE_CODES <= 65536, "transition_counts: TILE_CODES must be in [16, 65536]")
+    locs, n_locs = locs.contiguous(), n_locs.contiguous()
+    out = torch.empty(B, len(GAPS), NUM_CODES, NUM_CODES, dtype=torch.float32,
+                      device=locs.device)
+    if B == 0:
+        return out
+    done = torch.empty(B, dtype=torch.int32, device=locs.device)
+    fn = _build.entry("transition_counts_codes")
+    err = fn(locs.data_ptr(), n_locs.data_ptr(), done.data_ptr(), out.data_ptr(), B, L,
+             TILE_CODES, _stream(locs))
+    LAUNCHES["transition_counts_codes"] += 1
+    _build.check("transition_counts_codes", err)
+    return out
+
+
 def transition_features_bytes_plain(data: torch.Tensor, offsets: torch.Tensor,
                                     seq_lens: torch.Tensor) -> torch.Tensor:
     """Plain version of ``transition_features_bytes``: the byte → code
@@ -109,11 +161,7 @@ def transition_features_bytes_plain(data: torch.Tensor, offsets: torch.Tensor,
     codes = torch.nn.functional.pad(codes[keep], (0, K - 1))
     locs, n_locs = locs_from_codes(codes[None], n_codes)
     counts = _pair_counts(locs[0], row, pos, n_locs[row], B).reshape(B, FEATURE_DIM)
-    # a tensor numerator: ``100.0 / t`` would multiply by the reciprocal,
-    # which is not IEEE division and differs from JAX in the last bit
-    lens = torch.clamp(seq_lens.to(torch.float32), min=1.0)
-    scale = torch.full_like(lens, 100.0) / lens
-    return counts * scale[:, None]
+    return scale_by_length(counts, seq_lens)
 
 
 def transition_features_bytes(data: torch.Tensor, offsets: torch.Tensor,
@@ -669,7 +717,7 @@ def scan_hits_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Ten
 
 #: the most bits of ``scan_hits``' hit filter: 2^27 bits, 16 MiB.  On the
 #: H100 random reads within 4-16 MiB run at 112-115 G/s, within 32 MiB at
-#: 83 and 64 MiB at 48; on phase 20's chunks at world 1 filters of 2^25-2^29
+#: 83 and 64 MiB at 48; on phase 22's chunks at world 1 filters of 2^25-2^29
 #: bits gave 1.85, 1.64, 1.59, 2.00 and 3.06 ms, fewer bits setting more of
 #: them (``palace_tpu_torch/tools/k4_sharded.py variants``); read at each call
 HIT_FILTER_BITS = 27
@@ -769,7 +817,7 @@ def scan_hits(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
     on the H100: bytes, 0.375 B a position in (codes and invalid bits) and
     0.375 B out, 24 B of offsets a row, the filter read once, and a
     32-byte sector for each shard read behind a set filter bit (14.3 M of
-    phase 20's 125.7 M in-range hashes at world 1, 2^27 bits); the
+    phase 22's 125.7 M in-range hashes at world 1, 2^27 bits); the
     filter's probes, a 32-byte sector for each in-range hash, are served
     by the L2 and are a term of their own, with no published rate.  The
     first design read the shard for every in-range hash, a floor of 1.20

@@ -104,6 +104,35 @@ def kmer_hashes(codes: torch.Tensor, perm: np.ndarray, k: int
     return hashes, valid
 
 
+def kmer_hashes_np(codes: np.ndarray, perm: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host oracle of the reference's scalar hash loop (extract_ref.cpp:965-999):
+    codes (L,) 0..4 → ((L-k+1, 3) uint32 canonical hashes, valid mask)."""
+    comple_code = {0: 3, 1: 2, 2: 1, 3: 0, 4: 4}
+    L = codes.shape[-1]
+    M = L - k + 1
+    hashes = np.zeros((M, 3), dtype=np.uint64)
+    valid = np.zeros(M, dtype=bool)
+    base = [2 ** (k - 1 - z) for z in range(k)]
+    for j in range(M):
+        ok = True
+        for i in range(3):
+            h = 0
+            hc = 0
+            for z in range(k):
+                b = int(codes[j + z])
+                if b >= 4:
+                    ok = False
+                    break
+                h += int(CODER_BITS[int(perm[z, i]), b]) * base[z]
+                # n = coder[choose_coder[(k-1-z)*3+i]][comple(s[j+z])], weight base[k-1-z]
+                hc += int(CODER_BITS[int(perm[k - 1 - z, i]), comple_code[b]]) * base[k - 1 - z]
+            if not ok:
+                break
+            hashes[j, i] = min(h, hc)
+        valid[j] = ok
+    return hashes.astype(np.uint32), valid
+
+
 def kmer_hashes_masked(codes: torch.Tensor, perm: np.ndarray, k: int) -> torch.Tensor:
     """``kmer_hashes`` with invalid k-mers set to hash 0, the reference's
     permanent-miss slot (extract_ref.cpp:793-796)."""

@@ -16,8 +16,9 @@ Reference semantics (bin/extract_ref.cpp slide_window :504-624):
 * refs whose merged interval length exceeds 75 % of ``ref_len`` (and
   el>0) are reported: ``ref_index idx frag el len ratio`` (:611-617).
 
-The per-position flags come from kernel K4 (``ops.kernels.good_windows``);
-the interval state machine runs on the host over the transitions.
+The per-position flags come from kernel K4 (``ops.kernels.good_windows``,
+also as JAX's ``good_windows``/``good_windows_batch`` below); the interval
+state machine runs on the host over the transitions.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from palace_tpu_torch.device import resolve_device
+from palace_tpu_torch.device import input_device, resolve_device
 from palace_tpu_torch.ops import kernels
 
 
@@ -47,6 +48,49 @@ def window_thresholds(window: int, hit_ratio: float, perfect_hit_ratio: float) -
     one_min = int(np.float32(window) * np.float32(hit_ratio))
     three_min = int(np.float32(window) * np.float32(perfect_hit_ratio))
     return one_min, three_min
+
+
+#: rows of one launch of ``kernels.good_windows`` (a grid dimension)
+_ROWS_A_LAUNCH = 65535
+
+
+def good_windows_batch(counts, hashes, window: int, one_min: int, three_min: int,
+                       least_depth: int = 3, device: str | torch.device | None = None
+                       ) -> torch.Tensor:
+    """Per-position good-window flags of a stack of references: (NB, L, 3)
+    uint8 count-table values and hashes of any integer dtype (hash 0 a
+    permanent miss) → (NB, L) bool, JAX ``good_windows_batch``.
+
+    L is padded to a multiple of 8 with misses (a window only looks back,
+    so the pad changes no flag), ``kernels.good_windows`` runs once for
+    every 65,535 rows, and its little-endian bits are unpacked and cut to
+    L.  On the card a window above ``kernels.GOOD_WINDOWS_MAX_WINDOW``
+    raises; the CPU takes any window.  Tensors stay where they lie unless
+    ``device`` is given; numpy goes to ``device``, the card by default."""
+    dev = input_device(counts, device)
+    counts = torch.as_tensor(counts).to(dev, torch.uint8)
+    # int64 before the copy: uint32 hashes at or above 2^31 keep their value
+    hashes = torch.as_tensor(hashes).to(torch.int64).to(dev)
+    NB, L = counts.shape[:2]
+    pad = -L % 8
+    counts = torch.nn.functional.pad(counts, (0, 0, 0, pad))
+    hashes = torch.nn.functional.pad(hashes, (0, 0, 0, pad))
+    bits = torch.cat([kernels.good_windows(counts[r:r + _ROWS_A_LAUNCH],
+                                           hashes[r:r + _ROWS_A_LAUNCH], window, one_min,
+                                           three_min, least_depth)
+                      for r in range(0, max(NB, 1), _ROWS_A_LAUNCH)])
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    return ((bits[:, :, None] >> shifts) & 1).reshape(NB, L + pad)[:, :L].bool()
+
+
+def good_windows(counts, hashes, window: int, one_min: int, three_min: int,
+                 least_depth: int = 3, device: str | torch.device | None = None
+                 ) -> torch.Tensor:
+    """``good_windows_batch`` of one reference: (L, 3) counts and hashes →
+    (L,) bool, JAX ``good_windows``."""
+    dev = input_device(counts, device)
+    return good_windows_batch(torch.as_tensor(counts)[None], torch.as_tensor(hashes)[None],
+                              window, one_min, three_min, least_depth, dev)[0]
 
 
 def unpack_good(bits: np.ndarray, n: int) -> np.ndarray:

@@ -33,6 +33,10 @@ def file_exists_with_content(path: str | Path) -> bool:
         return False
 
 
+class StageSkipped(Exception):
+    """Raised internally to mark a stage skipped (not an error)."""
+
+
 @dataclass
 class Stage:
     name: str

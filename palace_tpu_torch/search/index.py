@@ -122,6 +122,12 @@ def compute_hashes_for_codes(codes: np.ndarray, perm: np.ndarray, k: int,
     return np.concatenate(chunks, axis=0).astype(np.uint32)
 
 
+def compute_hashes_for_seq(seq: str, perm: np.ndarray, k: int,
+                           device: str | torch.device = "cuda") -> np.ndarray:
+    """``compute_hashes_for_codes`` of a sequence's base codes."""
+    return compute_hashes_for_codes(seq_to_codes(seq), perm, k, device)
+
+
 def build_index(
     fasta_path: str | Path,
     k: int = 32,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """K4's sharded Phase B (``kernels.scan_hits`` and ``kernels.window_hits``)
-on one CUDA card, on the chunks ``chip_smoke.py`` times them on (phase 20):
+on one CUDA card, on the chunks ``chip_smoke.py`` times them on (phase 22):
 the eref world of ``chip_smoke.make_eref_world`` (5,000 references, 357.8
 Mbp, 200,000 reads, seed 7) at k = 32, its 4 GiB count table, and
 ``chip_smoke.picked_chunks(plan_chunks(index))``, 13 chunks.
@@ -196,7 +196,7 @@ extern "C" int blocks_per_sm(int depth) {
 
 
 def load_world(smoke, dev):
-    """The index, the 4 GiB table (Phase A on the card) and phase 20's
+    """The index, the 4 GiB table (Phase A on the card) and phase 22's
     chunks, each as (target, rows, offsets on the card)."""
     from palace_tpu_torch.config import KmerParams
     from palace_tpu_torch.search.eref import (DeviceDB, chunk_offsets, count_reads_into_table,

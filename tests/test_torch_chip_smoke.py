@@ -214,17 +214,26 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
     smoke = chip_smoke.Smoke("cpu")
     chip_smoke.run_phases(smoke)
     chip_smoke.run_eref_phases(smoke)
-    assert smoke.failures[:6] == [f"main path{dt} launched {name} (0 times)"
-                                  for dt in ("", " in float32")
-                                  for name in chip_smoke.SCORING_KERNELS]
-    assert len(smoke.failures) == 8
-    assert smoke.failures[6].startswith("eref main path launched scan_chunk once a chunk (0 ")
-    assert smoke.failures[7].startswith("per-reference path launched good_windows once a "
-                                        "reference (0 ")
+    names = [f for f in smoke.failures if f.startswith(("public names:", "window names:"))]
+    failures = [f for f in smoke.failures if f not in names]
+    assert failures[:6] == [f"main path{dt} launched {name} (0 times)"
+                            for dt in ("", " in float32")
+                            for name in chip_smoke.SCORING_KERNELS]
+    assert len(failures) == 8
+    assert failures[6].startswith("eref main path launched scan_chunk once a chunk (0 ")
+    assert failures[7].startswith("per-reference path launched good_windows once a "
+                                  "reference (0 ")
+    # phases 6 and 10: each call's launch checks, and no other check, fail
+    n_chunks = smoke.records["good_windows"]["chunks"]
+    assert len(names) == 3 + 2 + 2 + n_chunks + 1
+    assert all(" launched " in f and f.endswith("(0 launches)") for f in names)
+    assert smoke.records["public_names"]["phage_err"] <= chip_smoke.PROB_ATOL
+    assert smoke.records["transition_counts/codes"]["max_abs_err"] == 0
     assert {"transition_counts", "sage_rounds", "conv_head", "slice", "eref",
             "good_windows", "scan_chunk", "per_reference", "transition_counts_assembly",
             "slice_float32", "host_step", "transition_counts_low_complexity",
-            "sage_rounds/float32", "sage_rounding_float32"} <= set(smoke.records)
+            "sage_rounds/float32", "sage_rounding_float32", "public_names",
+            "transition_counts/codes"} <= set(smoke.records)
     f32 = smoke.records["sage_rounds/float32"]
     assert f32["bound"] == (f32["bounds"]["tf32"], "operations")
     k3 = smoke.records["conv_head/float32"]
@@ -371,7 +380,7 @@ def test_make_pipeline_world_runs_through_both_drivers(monkeypatch, tmp_path):
 
 
 def test_pipeline_phases_run_on_the_cpu_at_a_small_size(monkeypatch):
-    """Phases 14-15 at the small size on the CPU, where every wrapper takes
+    """Phases 16-17 at the small size on the CPU, where every wrapper takes
     its plain version: every check passes except that the pipeline
     launched the card's kernels."""
     _small_pipeline_world(monkeypatch)
@@ -399,7 +408,7 @@ def _pooled(feats):
 
 
 def test_train_phases_run_on_the_cpu_at_a_small_size(monkeypatch):
-    """Phases 16-17 at a small size on the CPU (the small config, K1's plain
+    """Phases 18-19 at a small size on the CPU (the small config, K1's plain
     features pooled to its width): every check passes except that the
     features and the scorer launched the card's kernels."""
     from palace_tpu_torch.models import gcn, scoring
@@ -436,13 +445,13 @@ def test_train_phases_run_on_the_cpu_at_a_small_size(monkeypatch):
 
 
 
-# -- phases 18-19: the GCN across devices, on the CPU under gloo ---------------------------
+# -- phases 20-21: the GCN across devices, on the CPU under gloo ---------------------------
 
 SMALL_MESH = dict(fnode_num=8, gcn_dim=16, cnn_dim=8, fc_dim=10)
 
 
 def _small_mesh_rank():
-    """Run first by each rank of phase 19 on the CPU: K1's plain features
+    """Run first by each rank of phase 21 on the CPU: K1's plain features
     pooled to the small config's width, one thread."""
     from palace_tpu_torch.models import scoring
 
@@ -470,7 +479,7 @@ def _wrong_shard_rank():
 
 
 def _small_mesh_phases(monkeypatch, setup):
-    """Phases 18-19 at the small config (K1's features pooled, as for the
+    """Phases 20-21 at the small config (K1's features pooled, as for the
     training phases), 8 contigs of 2 kb in batches of 4, two gloo ranks."""
     from palace_tpu_torch.models import gcn, scoring
 

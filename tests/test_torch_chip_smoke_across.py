@@ -1,4 +1,4 @@
-"""chip_smoke.py's phases 20-22 (eref and the pipeline across devices) on
+"""chip_smoke.py's phases 22-24 (eref and the pipeline across devices) on
 the CPU under gloo, at the small eref and pipeline worlds of
 tests/test_torch_chip_smoke.py; a file of their own so that the test
 runner can place their spawned ranks beside the other phases' tests."""
@@ -11,7 +11,7 @@ from test_torch_chip_smoke import (SMALL_GCN, _jax_hits_on_the_small_world, _sma
 
 
 def _small_pipeline_rank():
-    """Run first by each rank of phases 21-22 on the CPU: the small config
+    """Run first by each rank of phases 23-24 on the CPU: the small config
     the pipeline's default scorer reads (``_small_pipeline_world``), one
     thread."""
     from palace_tpu_torch.models import gcn
@@ -21,7 +21,7 @@ def _small_pipeline_rank():
 
 
 def test_across_devices_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
-    """Phases 20-22 on the small eref and pipeline worlds, after the phases
+    """Phases 22-24 on the small eref and pipeline worlds, after the phases
     they are held to (6-7, 14-15): every check passes except that the
     card's kernels were launched, on one rank, on each of two ranks for
     ``run_search`` and ``run_search_distributed``, and in the pipeline on

@@ -162,6 +162,85 @@ def test_card_transition_features_of_no_rows_launch_nothing(cuda):
     assert kernels.LAUNCHES["transition_counts"] == before
 
 
+def _code_cases(tile):
+    """(B, L) int32 codes and (B,) n_locs: random codes (not 3-mer chains),
+    ragged n_locs with 0, L and more than L; rows of several tiles with
+    n_locs at the tile edges; codes outside [0, 64)."""
+    rng = np.random.default_rng(5)
+    L = 3 * tile + 37
+    ragged = rng.integers(0, 64, (9, 700), dtype=np.int32)
+    edges = rng.integers(0, 64, (8, L), dtype=np.int32)
+    bad = rng.integers(0, 64, (4, L), dtype=np.int32)
+    bad[rng.random(bad.shape) < 0.05] = -1
+    bad[0, ::97], bad[1, tile - 3:tile + 3], bad[2, -5:] = 64, 1 << 30, -(1 << 31)
+    bad[3, ::5] = 70
+    return {
+        "ragged": (ragged, np.array([0, 1, 3, 4, 5, 6, 350, 700, 9000], np.int32)),
+        "tile_edges": (edges, np.array([tile - 6, tile - 5, tile, tile + 5, 2 * tile + 1,
+                                        3 * tile, L, L + 1], np.int32)),
+        "out_of_range": (bad, np.array([L, L - 1, L, tile + 4], np.int32)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [kernels.TILE_CODES, 1000])
+@pytest.mark.parametrize("case", ["ragged", "tile_edges", "out_of_range"])
+def test_card_transition_counts_codes_equal_plain(cuda, case, tile, monkeypatch):
+    """K1's padded-codes entry at the main path's tile and at 1000 codes,
+    where rows of more than 1000 spread over several blocks: equal to its
+    plain version, one launch counted under ``transition_counts_codes``."""
+    locs, n_locs = (torch.from_numpy(a).to(cuda) for a in _code_cases(tile)[case])
+    monkeypatch.setattr(kernels, "TILE_CODES", tile)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.transition_counts(locs, n_locs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["transition_counts_codes"] == before["transition_counts_codes"] + 1
+    assert kernels.LAUNCHES["transition_counts"] == before["transition_counts"]
+    assert got.shape == (locs.shape[0], 3, 64, 64) and got.dtype == torch.float32
+    assert torch.equal(got, kernels.transition_counts_plain(locs, n_locs))
+    assert got.sum() > 0
+
+
+@pytest.mark.cuda
+def test_card_transition_features_of_codes_equal_the_byte_entry(cuda):
+    """``transition_features`` on a batch's ``seq_to_kmer_locs``, padded,
+    and ``features_from_codes``/``features_from_packed``: each one launch
+    of the codes entry, bit-equal to the byte entry on the same contigs."""
+    from palace_tpu_torch.ops import encoder
+
+    rng = np.random.default_rng(6)
+    seqs = [_random_bases(rng, n, "ACGTNacgt") for n in rng.integers(0, 3000, 40)] + ["", "AC"]
+    want = encoder.features_from_bytes(*_bytes_on(seqs, cuda))
+    locs = [encoder.seq_to_kmer_locs(s)[0] for s in seqs]
+    padded = np.zeros((len(seqs), max(map(len, locs)) + 3), np.int32)
+    for i, row in enumerate(locs):
+        padded[i, :len(row)] = row
+    lens = np.array([len(s) for s in seqs], np.int32)
+    n_locs = np.array([len(row) for row in locs], np.int32)
+    codes, n_codes, orig = encoder.seqs_to_code_batch(seqs)
+    runs = {"transition_features": lambda: encoder.transition_features(padded, n_locs, lens),
+            "features_from_codes": lambda: encoder.features_from_codes(codes, n_codes, orig),
+            "features_from_packed": lambda: encoder.features_from_packed(
+                *encoder.pack_contigs(seqs))}
+    for name, run in runs.items():
+        kernels.reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda", name
+        assert kernels.LAUNCHES["transition_counts_codes"] == 1, name
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_card_transition_counts_raises_instead_of_falling_back(cuda):
+    locs = torch.zeros(2, 8, dtype=torch.int32, device=cuda)
+    n_locs = torch.full((2,), 8, dtype=torch.int32, device=cuda)
+    for bad in ((locs.long(), n_locs), (locs[0], n_locs), (locs, n_locs.long()),
+                (locs, n_locs[:1]), (locs, n_locs.cpu())):
+        with pytest.raises(ValueError):
+            kernels.transition_counts(*bad)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B", [1, 4, 133])
@@ -339,6 +418,35 @@ def test_card_good_windows_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):  # int32 hashes
         kernels.good_windows(counts[:, :8], torch.zeros(1, 8, 3, dtype=torch.int32, device=cuda),
                              10, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NB,L,window", [(3, 1001, 50), (2, 37, 500), (65536, 8, 3)])
+def test_card_good_windows_batch_equal_its_cpu_route(cuda, NB, L, window):
+    """``window.good_windows_batch`` on the card against its CPU route: L
+    not a multiple of 8, a window beyond L, uint32 hashes at and above
+    2^31 and hash 0, and more rows than one launch takes (two launches)."""
+    from palace_tpu_torch.ops import window as twin
+
+    rng = np.random.default_rng(NB + L)
+    counts = rng.integers(2, 5, (NB, L, 3)).astype(np.uint8)
+    hashes = rng.integers(0, 1 << 32, (NB, L, 3), dtype=np.uint64).astype(np.uint32)
+    hashes[:, ::5] = 0
+    hashes[:, 1::5] |= np.uint32(1 << 31)
+    span = min(window, L)
+    one_min, three_min = int(span * 0.4), int(span * 0.02)
+    kernels.reset_launches()
+    got = twin.good_windows_batch(counts, hashes, window, one_min, three_min)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["good_windows"] == -(-NB // 65535)
+    want = twin.good_windows_batch(counts, hashes, window, one_min, three_min, device="cpu")
+    assert got.device.type == "cuda" and got.shape == (NB, L) and got.dtype == torch.bool
+    assert torch.equal(got.cpu(), want)
+    assert 0 < want.float().mean() < 1
+    one = twin.good_windows(counts[0], hashes[0], window, one_min, three_min)
+    assert torch.equal(one.cpu(), want[0])
+    with pytest.raises(ValueError):
+        twin.good_windows_batch(counts, hashes, kernels.GOOD_WINDOWS_MAX_WINDOW + 1, 1, 1)
 
 
 @pytest.mark.cuda

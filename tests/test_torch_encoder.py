@@ -139,3 +139,16 @@ def test_plain_counts_equal_pallas_and_xla(B, L, tile):
     np.testing.assert_array_equal(got.numpy(), want_pallas)
     assert got.sum() > 0
 
+
+def test_plain_counts_of_out_of_range_codes_equal_xla():
+    """A pair with a code outside [0, 64) counts nothing, as JAX's one-hot
+    gives such a code no bin (204 pairs here, where a wrong bin or row
+    would count 216)."""
+    locs = RNG.integers(0, 64, (2, 40), dtype=np.int32)
+    locs[0, 5], locs[1, 7] = 70, -1
+    n_locs = np.array([40, 40], np.int32)
+    got = kernels.transition_counts_plain(torch.from_numpy(locs), torch.from_numpy(n_locs))
+    want = np.asarray(jenc._transition_counts(jnp.asarray(locs), jnp.asarray(n_locs)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.sum() == want.sum() == 3 * 2 * 40 - 2 * (3 + 4 + 5) - 2 * 3 * 2
+

@@ -388,6 +388,18 @@ def test_fasta_store_equals_jax(tmp_path):
     j.close()
 
 
+@pytest.mark.parametrize("width", [None, 0, -1, 60])
+def test_write_fasta_equals_jax(tmp_path, width):
+    from palace_tpu.io.fasta import write_fasta as jwrite_fasta
+    from palace_tpu_torch.io.fasta import write_fasta
+
+    records = [("a", "ACGT"), ("b", "ACGTN" * 30), ("c", "")]
+    write_fasta(tmp_path / "port.fa", records, width=width)
+    jwrite_fasta(tmp_path / "jax.fa", records, width=width)
+    assert (tmp_path / "port.fa").read_bytes() == (tmp_path / "jax.fa").read_bytes()
+    assert (tmp_path / "port.fa").read_text().startswith(">a\nACGT\n")
+
+
 def _filter_world(tmp_path: Path):
     """A graph filter input: six SPAdes edges, a blast table, gene hits,
     scores (one in scientific notation) and contigs.paths."""
