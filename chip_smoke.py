@@ -79,7 +79,8 @@ Phases, each of which must pass:
    ``scan_chunk`` a chunk) with the launch counters reset just before and
    read just after; every hit a planted reference, and as many hits as
    the JAX package reported on this world (``benchmarks/phaseb_5kref.json``);
-   Phase B's peak memory and its host parts (launches, fetches, verdicts);
+   Phase B's peak memory and its host parts (upload, plan, the chunks'
+   launches and their offsets check, fetches, verdicts);
 9. K4 fused on real chunks: ``scan_chunk`` equal to its plain version on
    every Phase B chunk; its time on the first chunk of each length bucket
    and one with pad rows, beside the parent's route (the torch hashing
@@ -340,7 +341,8 @@ def k1_tiles(offsets, tile: int) -> int:
 
 
 #: Phase B's host parts in the port's GLOBAL_METRICS (search/eref.py)
-HOST_PARTS = ("eref.scan_launch", "eref.scan_fetch", "eref.verdicts")
+HOST_PARTS = ("eref.upload", "eref.plan", "eref.scan", "eref.scan_check", "eref.scan_fetch",
+              "eref.verdicts")
 #: scan_chunk's integer operations a position: about 40 to hash, 10 to window
 SCAN_OPS = 50
 
@@ -351,6 +353,13 @@ def host_parts() -> dict:
 
     stages = GLOBAL_METRICS.stages
     return {n: stages[n].seconds * 1e3 if n in stages else 0.0 for n in HOST_PARTS}
+
+
+def host_parts_line(parts: dict) -> str:
+    """``HOST_PARTS``' milliseconds by name: the upload, the plan, the
+    chunks' launches (``eref.scan``, which holds the wrapper's synchronizing
+    offsets check, ``eref.scan_check``), the fetches and the verdicts."""
+    return ", ".join(f"{n} {parts[n]:.2f} ms" for n in HOST_PARTS)
 
 
 def scan_bound(positions: int, rows: int, table_reads: int) -> tuple:
@@ -2321,8 +2330,7 @@ class Smoke:
             f"{total / b_s / 1e6:.2f} Mpos/s; peak memory {peak / 2**30:.2f} GiB; "
             f"launches {launches}")
         say(f"  Phase B alone: peak memory {peak_b / 2**30:.3f} GiB (Phase A {peak_a / 2**30:.3f}); "
-            f"host clock: launches {parts['eref.scan_launch']:.2f} ms, fetches "
-            f"{parts['eref.scan_fetch']:.2f} ms, verdicts {parts['eref.verdicts']:.2f} ms")
+            f"host clock: {host_parts_line(parts)}")
         scanned = sum(rows * target for target, _, rows in chunks)
         valid = sum(max(0, int(index.lengths[r]) - EREF_K + 1) for _, refs, _ in chunks
                     for r in refs)
@@ -2684,7 +2692,7 @@ class Smoke:
     def phase_b_profile(self, world, table):
         """Phase B's time apart: one whole ``search_references`` under
         torch.profiler, its device time by kernel and in the ``eref.scan``
-        span beside the host's launches, fetches and verdicts (the port's
+        span beside the host's parts, ``HOST_PARTS`` (the port's
         GLOBAL_METRICS); then the wall and device time a chunk of the
         fused route over the largest chunks."""
         from torch.profiler import ProfilerActivity, profile, record_function
@@ -2735,9 +2743,7 @@ class Smoke:
         busy = sum(ms for ms, _ in by_kernel.values())
         say(f"  one Phase B under the profiler: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
             f"({100 * busy / wall_ms:.1f}%), eref.scan span {spans.get('eref.scan', 0.0):.2f} "
-            f"ms; host clock: launches {parts['eref.scan_launch']:.2f} ms (each waits for "
-            f"the offsets check), fetches {parts['eref.scan_fetch']:.2f} ms, verdicts "
-            f"{parts['eref.verdicts']:.2f} ms; by kernel (ms, calls):")
+            f"ms; host clock: {host_parts_line(parts)}; by kernel (ms, calls):")
         for name, (ms, calls) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]:
             say(f"    {ms:9.3f}  {calls:5d}  {name[:90]}")
         self.records["phase_b_split"] = dict(wall_ms=wall_ms, busy_ms=busy, spans=spans,

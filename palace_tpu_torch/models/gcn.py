@@ -35,11 +35,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from palace_tpu_torch.ops import kernels
 from palace_tpu_torch.parallel import collectives
 from palace_tpu_torch.parallel.mesh import Mesh, data_sharding
+from palace_tpu_torch.utils.timers import StageTimer
 
 Params = Dict[str, torch.Tensor]
 
@@ -307,29 +307,32 @@ def forward(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
     its shards (``parallel.mesh.shard_params_for_gcn``): ``pnode_d`` runs
     column-split and ``d1`` row-split, with the model group's collectives
     around them, and the kernels run unchanged on the replicated
-    activations between."""
+    activations between.  Its four parts are the spans ``gcn.lift``,
+    ``gcn.sage``, ``gcn.conv`` and ``gcn.fc``, as in ``train_forward``."""
     B = x_p.shape[0]
     pn, gd = cfg.pnode_num, cfg.gcn_dim
-    x_p, x_f = lift_inputs(params, x_p, x_f, cfg, mesh)
+    with StageTimer("gcn.lift"):
+        x_p, x_f = lift_inputs(params, x_p, x_f, cfg, mesh)
 
     # alternating bipartite SAGE rounds (phage_scoring.py:101-110)
-    if cfg.num_layers == 2:
-        sage = kernels.sage_rounds_plain if plain else kernels.sage_rounds
-        x_p = sage(x_p, x_f, sage_weight_stack(params, x_p.dtype))
-    else:
-        x_p = _sage_layers(params, x_p, x_f, cfg)
+    with StageTimer("gcn.sage"):
+        if cfg.num_layers == 2:
+            sage = kernels.sage_rounds_plain if plain else kernels.sage_rounds
+            x_p = sage(x_p, x_f, sage_weight_stack(params, x_p.dtype))
+        else:
+            x_p = _sage_layers(params, x_p, x_f, cfg)
 
     # channel-scramble reshape (phage_scoring.py:112): a raw reshape of the
     # row-major (B·4096, 128) activations, not a permute
-    x = x_p.reshape(B, gd, pn)
-    conv = kernels.conv_head_plain if plain else kernels.conv_head
-    x = conv(x, [params[f"conv{i}.w"] for i in (1, 2, 3)],
-             [params[f"conv{i}.b"] for i in (1, 2, 3)])
-    x = torch.relu(_dense_1(params, x.reshape(B, cfg.flat_dim), mesh))
-    logits = x @ params["d2.w"] + params["d2.b"]
-    if return_logits:
-        return logits
-    return torch.softmax(logits, dim=1)
+    with StageTimer("gcn.conv"):
+        x = x_p.reshape(B, gd, pn)
+        conv = kernels.conv_head_plain if plain else kernels.conv_head
+        x = conv(x, [params[f"conv{i}.w"] for i in (1, 2, 3)],
+                 [params[f"conv{i}.b"] for i in (1, 2, 3)])
+    with StageTimer("gcn.fc"):
+        x = torch.relu(_dense_1(params, x.reshape(B, cfg.flat_dim), mesh))
+        logits = x @ params["d2.w"] + params["d2.b"]
+        return logits if return_logits else torch.softmax(logits, dim=1)
 
 
 def phage_probabilities(params: Params, features: torch.Tensor,
@@ -373,23 +376,23 @@ def train_forward(params: Params, x_p: torch.Tensor, x_f: torch.Tensor,
     same ops.  The convs run through ``F.conv1d``, the counterpart of JAX's
     ``conv_general_dilated`` on this path; on a card, call it inside
     ``full_float32()``, backward included.  Its four parts run in the
-    profiler ranges ``gcn.lift``, ``gcn.sage``, ``gcn.conv`` and ``gcn.fc``;
+    spans ``gcn.lift``, ``gcn.sage``, ``gcn.conv`` and ``gcn.fc``;
     each backward node carries its forward op's ``sequence_nr``.  Under a
     ``mesh``, as ``forward``: the inputs are this rank's data block, the
     parameters its shards, and each dropout mask this rank's block of the
     global batch's (``dropout``)."""
     B = x_p.shape[0]
-    with record_function("gcn.lift"):
+    with StageTimer("gcn.lift"):
         x_p, x_f = lift_inputs(params, x_p, x_f, cfg, mesh)
-    with record_function("gcn.sage"):
+    with StageTimer("gcn.sage"):
         x_p = _sage_layers(params, x_p, x_f, cfg, generator, mesh)
-    with record_function("gcn.conv"):
+    with StageTimer("gcn.conv"):
         x = x_p.reshape(B, cfg.gcn_dim, cfg.pnode_num)  # the channel scramble, as ``forward``
         for i in (1, 2, 3):
             x = torch.relu(F.conv1d(x, params[f"conv{i}.w"], params[f"conv{i}.b"]))
             if i > 1:
                 x = dropout(x, cfg.drop_rate, generator, mesh)
-    with record_function("gcn.fc"):
+    with StageTimer("gcn.fc"):
         x = torch.relu(_dense_1(params, x.reshape(B, cfg.flat_dim), mesh))
         logits = x @ params["d2.w"] + params["d2.b"]
     return logits if return_logits else torch.softmax(logits, dim=1)

@@ -11,10 +11,17 @@ the ragged bytes in one kernel call
 the SAGE-rounds and conv-head kernels.  Results
 stay on the device until the last batch is queued, then come back in
 one copy.
+
+Spans (``utils.timers.StageTimer``): ``score.model`` builds the scorer;
+``gcn.score`` holds the rest of a call: on the main thread
+``score.host_wait`` (waiting for a batch's host step), ``score.dispatch``
+(the copy to the device, K1 and the forward, whose parts are
+``gcn.lift``, ``gcn.sage``, ``gcn.conv`` and ``gcn.fc``), ``score.fetch``
+(the one copy back, which waits for the device) and ``score.results``;
+on the background thread ``score.host_batch``.
 """
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple
@@ -29,7 +36,7 @@ from palace_tpu_torch.ops.encoder import byte_batch, features_from_bytes, pack_c
 from palace_tpu_torch.parallel.collectives import gather_blocks
 from palace_tpu_torch.parallel.mesh import Mesh, shard_params_for_gcn
 from palace_tpu_torch.utils.logging import get_logger
-from palace_tpu_torch.utils.timers import GLOBAL_METRICS
+from palace_tpu_torch.utils.timers import StageTimer
 
 logger = get_logger("palace")
 
@@ -97,6 +104,25 @@ def _batches(items: Iterable[Tuple[str, str]], size: int) -> Iterator[List[Tuple
         yield chunk
 
 
+def _host_steps(pool: ThreadPoolExecutor, prepare, chunks: Iterable[list]) -> Iterator:
+    """``prepare`` of each chunk on ``pool``'s thread, one chunk ahead of the
+    caller, in order: the next chunk is submitted before this one is
+    awaited.  The caller's share of it, those submits and the wait, is the
+    span ``score.host_wait``, one a chunk: while the background thread holds
+    the interpreter lock, the caller waits for it there too."""
+    chunks = iter(chunks)
+    chunk, fut = next(chunks, None), None
+    while chunk is not None:
+        with StageTimer("score.host_wait", 1, unit="batches"):
+            if fut is None:
+                fut = pool.submit(prepare, chunk)
+            chunk = next(chunks, None)
+            nxt = pool.submit(prepare, chunk) if chunk is not None else None
+            ready = fut.result()
+        yield ready
+        fut = nxt
+
+
 def score_sequences(
     params: Mapping[str, torch.Tensor],
     named_seqs: Iterable[Tuple[str, str]],
@@ -135,43 +161,55 @@ def score_sequences(
     else:
         dev = resolve_device(device)
         lo, hi = 0, batch_size
-    model = _scorer(params, cfg, dtype, dev, mesh)
-    t0 = time.perf_counter()
+    with StageTimer("score.model"):
+        model = _scorer(params, cfg, dtype, dev, mesh)
+    with StageTimer("gcn.score", unit="contigs") as call:
+        def prepare(chunk):  # on the background thread
+            with StageTimer("score.host_batch", unit="bytes") as span:
+                names = [name for name, _ in chunk]
+                seqs = [seq for _, seq in chunk]
+                seqs += ["A" * 4] * (batch_size - len(seqs))
+                host = _host_batch(seqs[lo:hi], dev)
+                span.items = host[0].numel()
+            return [names, host]
 
-    def prepare(chunk):
-        names = [name for name, _ in chunk]
-        seqs = [seq for _, seq in chunk]
-        seqs += ["A" * 4] * (batch_size - len(seqs))
-        return names, _host_batch(seqs[lo:hi], dev)
+        def dispatch(step):
+            # ``step`` is emptied here, so that the host batch is released inside
+            # the span (once its copies are queued), not where the caller rebinds it
+            with StageTimer("score.dispatch", hi - lo, unit="rows"):
+                names, host = step
+                step.clear()
+                feats = features_from_bytes(*_device_batch(host, dev))
+                del host
+                return names, model.score_features(feats, mesh=mesh)
 
-    def dispatch(names, host):
-        feats = features_from_bytes(*_device_batch(host, dev))
-        return names, model.score_features(feats, mesh=mesh)
-
-    # a single background thread prepares batch i+1 while this thread ships
-    # and dispatches batch i; the device runs behind both
-    pending: List[Tuple[List[str], torch.Tensor]] = []
-    with torch.inference_mode(), ThreadPoolExecutor(max_workers=1) as pool:
-        fut = None
-        for chunk in _batches(named_seqs, batch_size):
-            nxt = pool.submit(prepare, chunk)
-            if fut is not None:
-                pending.append(dispatch(*fut.result()))
-            fut = nxt
-        if fut is not None:
-            pending.append(dispatch(*fut.result()))
-        if pending:
-            probs = torch.stack([p for _, p in pending]).float()
-            if mesh is not None:
-                probs = gather_blocks(probs, mesh, "data", 1)
-            probs = probs.cpu().numpy()
-        else:
-            probs = np.zeros((0, batch_size), np.float32)
-    results: List[Tuple[str, float]] = []
-    for (names, _), row in zip(pending, probs):
-        results.extend((nm, float(p)) for nm, p in zip(names, row[: len(names)]))
-    GLOBAL_METRICS.record("gcn.score", time.perf_counter() - t0,
-                          items=len(results), unit="contigs")
+        # a single background thread prepares batch i+1 while this thread ships
+        # and dispatches batch i; the device runs behind both
+        pending: List[Tuple[List[str], torch.Tensor]] = []
+        pool = ThreadPoolExecutor(max_workers=1)
+        try:
+            with torch.inference_mode():
+                for step in _host_steps(pool, prepare, _batches(named_seqs, batch_size)):
+                    pending.append(dispatch(step))
+                with StageTimer("score.fetch", unit="contigs") as span:
+                    if pending:
+                        probs = torch.stack([p for _, p in pending]).float()
+                        if mesh is not None:
+                            probs = gather_blocks(probs, mesh, "data", 1)
+                        probs = probs.cpu().numpy()
+                    else:
+                        probs = np.zeros((0, batch_size), np.float32)
+                    span.items = sum(len(names) for names, _ in pending)
+        finally:
+            # the thread has nothing left to do: it ends without this one waiting
+            pool.shutdown(wait=False)
+        with StageTimer("score.results", unit="contigs") as span:
+            results: List[Tuple[str, float]] = []
+            for (names, _), row in zip(pending, probs):
+                results.extend((nm, float(p)) for nm, p in zip(names, row[: len(names)]))
+            span.items = len(results)
+            pending.clear()  # the batches' device memory, released inside the span
+        call.items = len(results)
     return results
 
 

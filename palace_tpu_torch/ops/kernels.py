@@ -21,7 +21,6 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from palace_tpu_torch.ops import _build
 from palace_tpu_torch.ops._build import LAUNCHES, reset_launches  # noqa: F401
@@ -36,6 +35,7 @@ from palace_tpu_torch.ops.encoder import (
     scale_by_length,
 )
 from palace_tpu_torch.ops.kmer import coder_masks, kmer_hashes_masked, unpack_codes_mask
+from palace_tpu_torch.utils.timers import StageTimer
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -569,7 +569,8 @@ SCAN_TILE = 8192
 def _check_scan(name: str, packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
                 table: torch.Tensor, perm: np.ndarray, k: int, target: int) -> None:
     """The checks ``scan_chunk`` and ``scan_hits`` share; the offsets are read
-    back to check them against the buffers (a synchronize)."""
+    back to check them against the buffers (a synchronize, the span
+    ``eref.scan_check``)."""
     _require(all(t.dtype == torch.uint8 and t.dim() == 1 and t.is_contiguous()
                  for t in (packed, mask, table)),
              f"{name}: packed, mask and table must be contiguous uint8 (n,)")
@@ -582,7 +583,8 @@ def _check_scan(name: str, packed: torch.Tensor, mask: torch.Tensor, offsets: to
     rows = offsets.shape[0]
     _require(rows < 65536, f"{name}: at most 65535 rows a launch")
     if rows:
-        low, high = torch.stack([offsets.amin(0), offsets.amax(0)]).tolist()
+        with StageTimer("eref.scan_check"):
+            low, high = torch.stack([offsets.amin(0), offsets.amax(0)]).tolist()
         _require(min(low) >= 0 and high[0] + target // 4 <= packed.numel()
                  and high[1] + target // 8 <= mask.numel(),
                  f"{name}: offsets and ref_len must be >= 0, and each row's target/4 code "
@@ -600,17 +602,14 @@ def scan_hashes_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.T
     ``scan_chunk``): slice each row's packed codes, unpack, mask the tail
     past ``ref_len`` (it may hold the next reference), hash, and pad the
     last k-1 positions with hash 0.  A pad row, offsets (0, 0, 0), masks to
-    code 4 everywhere.  The profiler spans ``eref.gather`` and
-    ``eref.hash`` name the two steps."""
+    code 4 everywhere."""
     dev = packed.device
-    with record_function("eref.gather"):
-        pb = packed[offsets[:, 0:1] + torch.arange(target // 4, device=dev)]
-        mb = mask[offsets[:, 1:2] + torch.arange(target // 8, device=dev)]
-        codes = unpack_codes_mask(pb, mb)
-        codes.masked_fill_(torch.arange(target, device=dev) >= offsets[:, 2:3], 4)
-    with record_function("eref.hash"):
-        hashes = kmer_hashes_masked(codes, perm, k)
-        return torch.nn.functional.pad(hashes, (0, 0, 0, k - 1))
+    pb = packed[offsets[:, 0:1] + torch.arange(target // 4, device=dev)]
+    mb = mask[offsets[:, 1:2] + torch.arange(target // 8, device=dev)]
+    codes = unpack_codes_mask(pb, mb)
+    codes.masked_fill_(torch.arange(target, device=dev) >= offsets[:, 2:3], 4)
+    hashes = kmer_hashes_masked(codes, perm, k)
+    return torch.nn.functional.pad(hashes, (0, 0, 0, k - 1))
 
 
 def scan_counts_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,
@@ -618,11 +617,9 @@ def scan_counts_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.T
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The counts and hashes, (rows, target, 3) uint8 and int64, that
     ``good_windows`` scans for one chunk: ``scan_hashes_plain``, then the
-    table lookup (hash 0 always reads 0) under the profiler span
-    ``eref.lookup``."""
+    table lookup (hash 0 always reads 0)."""
     hashes = scan_hashes_plain(packed, mask, offsets, perm, k, target)
-    with record_function("eref.lookup"):
-        counts = table[hashes].masked_fill_(hashes == 0, 0)
+    counts = table[hashes].masked_fill_(hashes == 0, 0)
     return counts, hashes
 
 
@@ -630,10 +627,9 @@ def scan_chunk_plain(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Te
                      table: torch.Tensor, perm: np.ndarray, k: int, target: int, window: int,
                      one_min: int, three_min: int, least_depth: int = 3) -> torch.Tensor:
     """Plain version of ``scan_chunk``: ``scan_counts_plain``, then
-    ``good_windows_plain`` under the profiler span ``eref.good_windows``."""
+    ``good_windows_plain``."""
     counts, hashes = scan_counts_plain(packed, mask, offsets, table, perm, k, target)
-    with record_function("eref.good_windows"):
-        return good_windows_plain(counts, hashes, window, one_min, three_min, least_depth)
+    return good_windows_plain(counts, hashes, window, one_min, three_min, least_depth)
 
 
 def scan_chunk(packed: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor,

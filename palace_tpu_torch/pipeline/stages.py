@@ -14,13 +14,12 @@ and raises on failure so the driver stops exactly like
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence
 
 from palace_tpu_torch.utils.logging import get_logger, show_progress
-from palace_tpu_torch.utils.timers import GLOBAL_METRICS, Metrics
+from palace_tpu_torch.utils.timers import GLOBAL_METRICS, Metrics, StageTimer
 
 logger = get_logger("palace")
 
@@ -79,14 +78,13 @@ class StageRunner:
             return result
         for out in stage.outputs:
             Path(out).parent.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
         try:
-            stage.run()
+            with StageTimer(f"stage:{stage.name}", metrics=self.metrics) as span:
+                stage.run()
         except Exception:
             logger.error("Stage %s failed", stage.name)
             raise
-        dt = time.perf_counter() - t0
-        self.metrics.record(f"stage:{stage.name}", dt)
+        dt = span.seconds
         logger.log(25, "Stage %s completed in %.2fs", stage.name, dt)
         result = StageResult(stage.name, skipped=False, seconds=dt)
         self.results.append(result)

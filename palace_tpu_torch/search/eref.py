@@ -31,16 +31,24 @@ Down-sampling: the reference samples reads with C ``rand()`` seeded 1
 every read is used, the only regime where the reference is
 deterministic; above that a deterministic per-read hash keeps the same
 expected coverage.
+
+Spans (``utils.timers.StageTimer``): ``eref.run_search`` holds a call;
+Phase A is ``eref.table_create``, ``eref.downsample_ratio`` and
+``eref.count_reads``, which holds ``eref.read`` (each batch from the
+reader), ``eref.pack``, ``eref.add_packed`` and ``eref.count_sync``;
+Phase B is ``eref.scan_refs``, which holds ``eref.plan``,
+``eref.upload``, ``eref.hit_filter`` (sharded), and a chunk at a time
+``eref.scan`` (with the wrapper's ``eref.scan_check``),
+``eref.scan_fetch`` and ``eref.verdicts``; ``eref.write`` writes the
+report.
 """
 from __future__ import annotations
 
-import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from palace_tpu_torch.config import KmerParams
 from palace_tpu_torch.device import resolve_device
@@ -61,7 +69,7 @@ from palace_tpu_torch.parallel.distributed import shard_inputs_for_process
 from palace_tpu_torch.parallel.mesh import Mesh
 from palace_tpu_torch.search.index import PhageIndex
 from palace_tpu_torch.utils.logging import get_logger
-from palace_tpu_torch.utils.timers import GLOBAL_METRICS
+from palace_tpu_torch.utils.timers import GLOBAL_METRICS, StageTimer
 
 logger = get_logger("palace")
 
@@ -84,9 +92,11 @@ def compute_downsample_ratio(fastq_path: str | Path, target_bases: int) -> int:
     """Reference cal_sam_ratio (extract_ref.cpp:1124-1148): percentage
     = 100·target / (2 × total bases of fq1).  The bases are counted by the
     native loader, or in Python where it is unavailable."""
-    total = fastq_native.count_bases(fastq_path)
-    if total is None:
-        total = sum(len(seq) for _, seq, _ in iter_fastq(fastq_path))
+    with StageTimer("eref.downsample_ratio", unit="bases") as span:
+        total = fastq_native.count_bases(fastq_path)
+        if total is None:
+            total = sum(len(seq) for _, seq, _ in iter_fastq(fastq_path))
+        span.items = total
     total *= 2  # paired
     if total == 0:
         return 100
@@ -152,14 +162,21 @@ def read_code_batches(
 ) -> Iterator[np.ndarray]:
     """(rows ≤ batch, maxlen) uint8 base-code matrices of the kept reads,
     pad code 4: from the native loader where it is built, else from the
-    Python reader (the same batches).  ``READERS`` counts the files each
-    read."""
+    Python reader (the same batches), each made under the span
+    ``eref.read``.  ``READERS`` counts the files each read."""
     if fastq_native.available():
         READERS["native"] += 1
-        yield from fastq_native.native_batches(fastq_path, batch, maxlen, ratio, k)
+        batches = fastq_native.native_batches(fastq_path, batch, maxlen, ratio, k)
     else:
         READERS["python"] += 1
-        yield from _py_read_batches(fastq_path, batch, maxlen, ratio, k)
+        batches = _py_read_batches(fastq_path, batch, maxlen, ratio, k)
+    while True:
+        with StageTimer("eref.read", unit="rows") as span:
+            codes = next(batches, None)
+            span.items = 0 if codes is None else codes.shape[0]
+        if codes is None:
+            return
+        yield codes
 
 
 def _timing() -> Tuple[float, int]:
@@ -174,12 +191,11 @@ def _record_collectives(stage: str, before: Tuple[float, int]) -> None:
         GLOBAL_METRICS.record(stage, secs - before[0], items=nbytes - before[1], unit="bytes")
 
 
-def _count_done(table, t0: float, n_reads: int, before: Tuple[float, int]) -> None:
-    if table.device.type == "cuda":
-        torch.cuda.synchronize(table.device)
-    GLOBAL_METRICS.record("eref.count_reads", time.perf_counter() - t0,
-                          items=n_reads, unit="reads")
-    _record_collectives("eref.count_reads.collectives", before)
+def _count_sync(table) -> None:
+    """The end of Phase A: the card's updates done."""
+    with StageTimer("eref.count_sync"):
+        if table.device.type == "cuda":
+            torch.cuda.synchronize(table.device)
 
 
 def _row_len(params: KmerParams) -> int:
@@ -200,30 +216,39 @@ def count_reads_into_table(
     not read): every rank reads the same files, the batch rounds up to a
     multiple of the mesh's ranks, and each rank counts its block of every
     batch."""
-    if mesh is None:
-        table = CountTable.create(params.k, params.least_depth, device=device)
-    else:
-        table = ShardedCountTable.create(mesh, params.k, params.least_depth)
+    with StageTimer("eref.table_create"):
+        if mesh is None:
+            table = CountTable.create(params.k, params.least_depth, device=device)
+        else:
+            table = ShardedCountTable.create(mesh, params.k, params.least_depth)
     ratio = compute_downsample_ratio(fastq_files[0], params.down_sampling_size)
     logger.info("Down-sampling ratio is %d%%.", min(ratio, 100))
-    t0, before = time.perf_counter(), _timing()
-    n_reads = 0
-    maxlen = _row_len(params)
-    batch = read_batch_size(table.device)
-    if mesh is not None:
-        batch = -(-batch // mesh.size) * mesh.size
-    for fq in fastq_files:
-        for codes in read_code_batches(fq, batch, maxlen, ratio, params.k):
-            n_reads += codes.shape[0]
-            if codes.shape[0] < batch:
-                # full batches, as the JAX package pads for one jit shape:
-                # the pad rows' invalid k-mers count at slot 0 in both
-                codes = np.pad(codes, ((0, batch - codes.shape[0]), (0, 0)),
-                               constant_values=4)
-            packed, mask = pack_codes_mask(codes)
-            table.add_packed(torch.from_numpy(packed), torch.from_numpy(mask),
-                             index.perm, params.k)
-    _count_done(table, t0, n_reads, before)
+    before = _timing()
+    with StageTimer("eref.count_reads", unit="reads") as span:
+        maxlen = _row_len(params)
+        batch = read_batch_size(table.device)
+        if mesh is not None:
+            batch = -(-batch // mesh.size) * mesh.size
+        # eref.pack's items are the reader's rows, eref.add_packed's the pad rows too.
+        # A batch's arrays stay alive until the next batch's replace them: freed
+        # before the next read, they let glibc trim the heap and fault it back in
+        # every batch (Phase A 1.99-2.08 s a sample against 1.41-1.49 on the host
+        # of an H100)
+        for fq in fastq_files:
+            for codes in read_code_batches(fq, batch, maxlen, ratio, params.k):
+                span.items += codes.shape[0]
+                with StageTimer("eref.pack", codes.shape[0], unit="rows"):
+                    if codes.shape[0] < batch:
+                        # full batches, as the JAX package pads for one jit shape:
+                        # the pad rows' invalid k-mers count at slot 0 in both
+                        codes = np.pad(codes, ((0, batch - codes.shape[0]), (0, 0)),
+                                       constant_values=4)
+                    packed, mask = pack_codes_mask(codes)
+                with StageTimer("eref.add_packed", batch, unit="rows"):
+                    table.add_packed(torch.from_numpy(packed), torch.from_numpy(mask),
+                                     index.perm, params.k)
+        _count_sync(table)
+    _record_collectives("eref.count_reads.collectives", before)
     return table
 
 
@@ -301,67 +326,65 @@ def search_references(table: CountTable | ShardedCountTable, index: PhageIndex,
     ``kernels.scan_hits`` against the shard, one uint8 all-reduce of
     the hit bit-planes over the mesh (each bit has one owning rank, so the
     sum is their OR), and ``kernels.window_hits``; every rank gets the same
-    hits.  ``GLOBAL_METRICS`` keeps the host's three parts apart: the
-    launches (``eref.scan_launch``), the fetches, which wait for the card
-    (``eref.scan_fetch``), and the verdicts on the flags
-    (``eref.verdicts``)."""
-    t0, before = time.perf_counter(), _timing()
-    one_min, three_min = window_thresholds(params.window, params.hit_ratio,
-                                           params.perfect_hit_ratio)
-    db = DeviceDB(index, table.device)
-    chunks = plan_chunks(index)
-    offs = np.concatenate([np.zeros((0, 3), np.int64)]
-                          + [chunk_offsets(index, refs, rows) for _, refs, rows in chunks])
-    offs = torch.from_numpy(offs).to(db.packed.device)
-    launched, row0 = [], 0
-    sharded = isinstance(table, ShardedCountTable)
-    filt = None  # the card's scan_hits reads a filter; the plain version reads the shard
-    if sharded and table.device.type == "cuda":  # one a Phase B: the shard does not change
-        with record_function("eref.hit_filter"):
-            filt = kernels.hit_filter(table.table, params.least_depth)
-    for target, refs, rows in chunks:
-        with record_function("eref.scan"):
-            if sharded:
-                planes = kernels.scan_hits(db.packed, db.mask, offs[row0:row0 + rows],
-                                           table.table, table.lo, index.perm, index.k, target,
-                                           params.least_depth, filt)
-                bits = kernels.window_hits(all_reduce_(planes, table.mesh.group_all),
-                                           params.window, one_min, three_min)
-            else:
-                bits = kernels.scan_chunk(db.packed, db.mask, offs[row0:row0 + rows],
-                                          table.table, index.perm, index.k, target,
-                                          params.window, one_min, three_min, params.least_depth)
-        launched.append((refs, bits))
-        row0 += rows
-    t1 = time.perf_counter()
+    hits.  Its spans are ``eref.plan``, ``eref.upload``, ``eref.hit_filter``
+    (sharded, on the card) and, a chunk at a time, ``eref.scan`` (the
+    launches, with the wrapper's synchronizing ``eref.scan_check``),
+    ``eref.scan_fetch`` (which waits for the card) and ``eref.verdicts``
+    (the host's verdicts on the flags)."""
+    before = _timing()
+    with StageTimer("eref.scan_refs", index.n_refs, unit="refs"):
+        with StageTimer("eref.plan", unit="chunks") as span:
+            one_min, three_min = window_thresholds(params.window, params.hit_ratio,
+                                                   params.perfect_hit_ratio)
+            chunks = plan_chunks(index)
+            offs = np.concatenate([np.zeros((0, 3), np.int64)]
+                                  + [chunk_offsets(index, refs, rows) for _, refs, rows in chunks])
+            span.items = len(chunks)
+        with StageTimer("eref.upload", unit="bytes") as span:
+            db = DeviceDB(index, table.device)
+            offs = torch.from_numpy(offs).to(db.packed.device)
+            span.items = db.packed.numel() + db.mask.numel() + offs.numel() * offs.element_size()
+        launched, row0 = [], 0
+        sharded = isinstance(table, ShardedCountTable)
+        filt = None  # the card's scan_hits reads a filter; the plain version reads the shard
+        if sharded and table.device.type == "cuda":  # one a Phase B: the shard does not change
+            with StageTimer("eref.hit_filter"):
+                filt = kernels.hit_filter(table.table, params.least_depth)
+        for target, refs, rows in chunks:
+            with StageTimer("eref.scan", rows * target, unit="positions"):
+                if sharded:
+                    planes = kernels.scan_hits(db.packed, db.mask, offs[row0:row0 + rows],
+                                               table.table, table.lo, index.perm, index.k, target,
+                                               params.least_depth, filt)
+                    bits = kernels.window_hits(all_reduce_(planes, table.mesh.group_all),
+                                               params.window, one_min, three_min)
+                else:
+                    bits = kernels.scan_chunk(db.packed, db.mask, offs[row0:row0 + rows],
+                                              table.table, index.perm, index.k, target,
+                                              params.window, one_min, three_min, params.least_depth)
+            launched.append((refs, bits))
+            row0 += rows
 
-    hits: List[RefHit] = []
-    fetch_s = 0.0
-    for refs, bits in launched:
-        t = time.perf_counter()
-        bits_host = bits.cpu().numpy()
-        fetch_s += time.perf_counter() - t
-        for row, r in enumerate(refs):
-            ref_len = int(index.lengths[r])
-            hit = hit_from_good(unpack_good(bits_host[row], ref_len), r + 1, ref_len,
-                                params.window, params.min_cover_ratio)
-            if hit is not None:
-                hits.append(hit)
-    hits.sort(key=lambda h: h.ref_index)
-    t2 = time.perf_counter()
-    positions = float(sum(rows * target for target, _, rows in chunks))
-    GLOBAL_METRICS.record("eref.scan_launch", t1 - t0, items=len(chunks), unit="chunks")
-    GLOBAL_METRICS.record("eref.scan_fetch", fetch_s, items=positions, unit="positions")
-    GLOBAL_METRICS.record("eref.verdicts", t2 - t1 - fetch_s, items=index.n_refs, unit="refs")
-    GLOBAL_METRICS.record("eref.scan_refs", t2 - t0, items=index.n_refs, unit="refs")
+        hits: List[RefHit] = []
+        for refs, bits in launched:
+            with StageTimer("eref.scan_fetch", bits.numel(), unit="bytes"):
+                bits_host = bits.cpu().numpy()
+            with StageTimer("eref.verdicts", len(refs), unit="refs"):
+                for row, r in enumerate(refs):
+                    ref_len = int(index.lengths[r])
+                    hit = hit_from_good(unpack_good(bits_host[row], ref_len), r + 1, ref_len,
+                                        params.window, params.min_cover_ratio)
+                    if hit is not None:
+                        hits.append(hit)
+        hits.sort(key=lambda h: h.ref_index)
     _record_collectives("eref.scan_refs.collectives", before)
     return hits
 
 
 def write_ref_names(path: str | Path, hits: Sequence[RefHit]) -> None:
     """The ``{prefix}_ref_names.txt`` artifact (palace:475-477 captures
-    eref's stdout)."""
-    with open(path, "w") as fh:
+    eref's stdout), under the span ``eref.write``."""
+    with StageTimer("eref.write", len(hits), unit="lines"), open(path, "w") as fh:
         for hit in hits:
             fh.write(hit.line() + "\n")
 
@@ -379,13 +402,16 @@ def run_search(
     write ``out_ref_names``, on the CUDA card unless ``device="cpu"``.
     Under a ``mesh`` (collective) every rank reads both files and counts
     into the sharded table on ``mesh.device``, every rank returns the same
-    hits, and rank 0 alone writes the file."""
-    if mesh is None:
-        device = resolve_device(device)
-    table = count_reads_into_table([fastq1, fastq2], index, params, device=device, mesh=mesh)
-    hits = search_references(table, index, params)
-    if mesh is None or mesh.rank == 0:
-        write_ref_names(out_ref_names, hits)
+    hits, and rank 0 alone writes the file.  The call is the span
+    ``eref.run_search``."""
+    with StageTimer("eref.run_search", 1, unit="samples"):
+        if mesh is None:
+            device = resolve_device(device)
+        table = count_reads_into_table([fastq1, fastq2], index, params, device=device,
+                                       mesh=mesh)
+        hits = search_references(table, index, params)
+        if mesh is None or mesh.rank == 0:
+            write_ref_names(out_ref_names, hits)
     logger.info("eref: %d references reported", len(hits))
     return hits
 
@@ -410,30 +436,38 @@ def run_search_distributed(
     the ranks meet at every batch; that bounds their skew and the device
     queue, as the JAX package's ``PALACE_DIST_SYNC_EVERY`` sync does every
     few batches.  The down-sampling ratio comes from the first file, on
-    every rank, as in JAX."""
-    my_files = shard_inputs_for_process([str(f) for f in fastq_files], mesh.index, mesh.size)
-    ratio = compute_downsample_ratio(fastq_files[0], params.down_sampling_size)
-    logger.info("Down-sampling ratio is %d%%.", min(ratio, 100))
-    t0, before = time.perf_counter(), _timing()
-    table = ShardedCountTable.create(mesh, params.k, params.least_depth)
-    maxlen, batch = _row_len(params), read_batch_size(table.device)
-    local, n_reads = [], 0
-    for fq in my_files:
-        for codes in read_code_batches(fq, batch, maxlen, ratio, params.k):
-            n_reads += codes.shape[0]
-            if codes.shape[0] < batch:
-                codes = np.pad(codes, ((0, batch - codes.shape[0]), (0, 0)),
-                               constant_values=4)
-            local.append(pack_codes_mask(codes))
-    n_batches = gather_ragged(torch.tensor([len(local)], device=table.device), mesh)
-    pad = pack_codes_mask(np.full((batch, maxlen), 4, dtype=np.uint8))
-    local += [pad] * (int(n_batches.max()) - len(local))
-    for packed, mask in local:
-        table.add_packed(torch.from_numpy(packed), torch.from_numpy(mask), index.perm,
-                         params.k, local=True)
-    _count_done(table, t0, n_reads, before)
-    hits = search_references(table, index, params)
-    if mesh.rank == 0:
-        write_ref_names(out_ref_names, hits)
+    every rank, as in JAX.  Its spans are ``run_search``'s."""
+    with StageTimer("eref.run_search", 1, unit="samples"):
+        my_files = shard_inputs_for_process([str(f) for f in fastq_files], mesh.index,
+                                            mesh.size)
+        ratio = compute_downsample_ratio(fastq_files[0], params.down_sampling_size)
+        logger.info("Down-sampling ratio is %d%%.", min(ratio, 100))
+        before = _timing()
+        with StageTimer("eref.count_reads", unit="reads") as span:
+            with StageTimer("eref.table_create"):
+                table = ShardedCountTable.create(mesh, params.k, params.least_depth)
+            maxlen, batch = _row_len(params), read_batch_size(table.device)
+            local = []
+            for fq in my_files:
+                for codes in read_code_batches(fq, batch, maxlen, ratio, params.k):
+                    span.items += codes.shape[0]
+                    with StageTimer("eref.pack", codes.shape[0], unit="rows"):
+                        if codes.shape[0] < batch:
+                            codes = np.pad(codes, ((0, batch - codes.shape[0]), (0, 0)),
+                                           constant_values=4)
+                        local.append(pack_codes_mask(codes))
+            n_batches = gather_ragged(torch.tensor([len(local)], device=table.device), mesh)
+            with StageTimer("eref.pack", batch, unit="rows"):
+                pad = pack_codes_mask(np.full((batch, maxlen), 4, dtype=np.uint8))
+            local += [pad] * (int(n_batches.max()) - len(local))
+            for packed, mask in local:
+                with StageTimer("eref.add_packed", batch, unit="rows"):
+                    table.add_packed(torch.from_numpy(packed), torch.from_numpy(mask),
+                                     index.perm, params.k, local=True)
+            _count_sync(table)
+        _record_collectives("eref.count_reads.collectives", before)
+        hits = search_references(table, index, params)
+        if mesh.rank == 0:
+            write_ref_names(out_ref_names, hits)
     logger.info("eref (distributed): %d references reported", len(hits))
     return hits

@@ -12,7 +12,6 @@ so either package loads the other's.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional
@@ -29,7 +28,7 @@ from palace_tpu_torch.ops.kmer import (
     seq_to_codes,
 )
 from palace_tpu_torch.utils.logging import get_logger
-from palace_tpu_torch.utils.timers import GLOBAL_METRICS
+from palace_tpu_torch.utils.timers import StageTimer
 
 logger = get_logger("palace")
 
@@ -140,37 +139,36 @@ def build_index(
     hash-compatibly with an index the reference binary built."""
     if perm is None:
         perm = make_choose_coder(k, coder_seed)
-    t0 = time.perf_counter()
-    names: List[str] = []
-    lengths: List[int] = []
-    code_offsets: List[int] = [0]
-    mask_offsets: List[int] = [0]
-    packed_parts: List[np.ndarray] = []
-    mask_parts: List[np.ndarray] = []
-    for name, seq in iter_fasta(fasta_path):
-        names.append(name)
-        lengths.append(len(seq))
-        codes = seq_to_codes(seq)
-        pad = (-codes.shape[0]) % 8
-        if pad:
-            codes = np.pad(codes, (0, pad), constant_values=4)
-        pb, mb = pack_codes_mask(codes[None, :])
-        packed_parts.append(pb[0])
-        mask_parts.append(mb[0])
-        code_offsets.append(code_offsets[-1] + pb.shape[1])
-        mask_offsets.append(mask_offsets[-1] + mb.shape[1])
-    index = PhageIndex(
-        k=k,
-        perm=perm,
-        names=names,
-        lengths=np.asarray(lengths, np.int64),
-        code_offsets=np.asarray(code_offsets, np.int64),
-        mask_offsets=np.asarray(mask_offsets, np.int64),
-        packed=(np.concatenate(packed_parts) if packed_parts else np.zeros(0, np.uint8)),
-        maskbits=(np.concatenate(mask_parts) if mask_parts else np.zeros(0, np.uint8)),
-    )
-    GLOBAL_METRICS.record("eref.index_build", time.perf_counter() - t0,
-                          items=len(names), unit="refs")
+    with StageTimer("eref.index_build", unit="refs") as span:
+        names: List[str] = []
+        lengths: List[int] = []
+        code_offsets: List[int] = [0]
+        mask_offsets: List[int] = [0]
+        packed_parts: List[np.ndarray] = []
+        mask_parts: List[np.ndarray] = []
+        for name, seq in iter_fasta(fasta_path):
+            names.append(name)
+            lengths.append(len(seq))
+            codes = seq_to_codes(seq)
+            pad = (-codes.shape[0]) % 8
+            if pad:
+                codes = np.pad(codes, (0, pad), constant_values=4)
+            pb, mb = pack_codes_mask(codes[None, :])
+            packed_parts.append(pb[0])
+            mask_parts.append(mb[0])
+            code_offsets.append(code_offsets[-1] + pb.shape[1])
+            mask_offsets.append(mask_offsets[-1] + mb.shape[1])
+        index = PhageIndex(
+            k=k,
+            perm=perm,
+            names=names,
+            lengths=np.asarray(lengths, np.int64),
+            code_offsets=np.asarray(code_offsets, np.int64),
+            mask_offsets=np.asarray(mask_offsets, np.int64),
+            packed=(np.concatenate(packed_parts) if packed_parts else np.zeros(0, np.uint8)),
+            maskbits=(np.concatenate(mask_parts) if mask_parts else np.zeros(0, np.uint8)),
+        )
+        span.items = len(names)
     if save:
         save_index(fasta_path, index)
     return index
