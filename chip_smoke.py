@@ -75,8 +75,9 @@ Phases, each of which must pass:
    for call: 5,000 references of 5-300 kb (357.8 Mbp, seed 7) and 200,000
    reads of 150 bp tiled from the first 100; the port's index build;
 8. the eref slice, the second main path: Phase A (``count_reads_into_table``,
-   k = 32, a 4 GiB count table) and Phase B (``search_references``, one
-   ``scan_chunk`` a chunk) with the launch counters reset just before and
+   k = 32, a 4 GiB count table, one ``count_codes`` a batch) and Phase B
+   (``search_references``, one ``scan_chunk`` a chunk) with the launch
+   counters reset just before and
    read just after; every hit a planted reference, and as many hits as
    the JAX package reported on this world (``benchmarks/phaseb_5kref.json``);
    Phase B's peak memory and its host parts (upload, plan, the chunks'
@@ -95,12 +96,20 @@ Phases, each of which must pass:
    the CPU's;
 11. the per-reference scan, ``good_windows``' path: ``scan_reference`` over
    the planted references with the counters reset just before and read
-   just after, the same verdicts as Phase B; then Phase A with the native
+   just after, the same verdicts as Phase B; then Phase A's kernel on the
+   world's batches as the card stages them: ``count_codes`` over every
+   batch equal to ``count_codes_plain`` and to the CPU's route
+   (``pack_codes_mask``, ``add_packed``), the whole table byte for byte,
+   its counters against the nonzero hashes, its time a batch on a fresh
+   table, its bound, the plain version's and the CPU route's times, and
+   what padding the short last batch costs; then Phase A with the native
    loader: the eref slice read its FASTQ with it and found the 67 hits, its
    batches equal the Python reader's, and Phase A's host seconds split into
-   the reader, ``pack_codes_mask`` and ``add_packed``;
-12. where the time goes: Phase A's host reader apart from its update on the
-   card; Phase B's device time by step and by kernel over a few chunks
+   the reader, the staging in one pinned buffer and each batch's upload
+   and ``count_codes``;
+12. where the time goes: Phase A's host reader apart from a batch's upload
+   and ``count_codes`` on the card; Phase B's device time by step and by
+   kernel over a few chunks
    (torch.profiler), and its wall time per chunk;
 13. the eref slice on a small world (k = 20) through ``run_search`` on the
    card and on the CPU: byte-identical ``ref_names.txt``;
@@ -247,6 +256,9 @@ GRAPH_SEED = 11
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
 PEAK_TF32_OPS_PER_S = 495e12  # the tensor cores on TF32 operands (K2's, K3's float32 routes)
+#: 1-byte reads at random addresses of a 4 GiB table, as the H100 80GB HBM3
+#: at 700 W gives them (measured for K4's ``scan_hits``, PERF.md's kernel table)
+RANDOM_READS_PER_S = 30.6e9
 #: K2's float32 route before the tensor cores (the CUDA-core kernel that
 #: ``sage_tf32_kernel`` replaced) on the inputs that
 #: ``Smoke.kernels_at_main_shapes`` ("slice") and ``Smoke.sage_rounding``
@@ -274,6 +286,9 @@ KERNELS = {  # name → (CUDA source, the Pallas call it replaces)
                     "palace_tpu/ops/pallas_kernels.py:252"),
     "hit_filter": ("palace_tpu_torch/csrc/good_windows.cu",
                    "palace_tpu/ops/pallas_kernels.py:252"),
+    # no Pallas call: the JAX package's Phase A counts with XLA's sort and scatter
+    "count_codes": ("palace_tpu_torch/csrc/count_codes.cu",
+                    "palace_tpu/ops/count_table.py:369"),
 }
 SCORING_KERNELS = ("transition_counts", "sage_rounds", "conv_head")
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.float16: "float16"}
@@ -2287,8 +2302,8 @@ class Smoke:
 
     def eref_slice(self, world):
         """The second main path: Phase A and Phase B on the card, counters
-        reset just before and read just after.  Returns the table and the
-        hits."""
+        reset just before and read just after; Phase A launches
+        ``count_codes`` once a batch.  Returns the table and the hits."""
         from palace_tpu_torch.config import KmerParams
         from palace_tpu_torch.ops import kernels
         from palace_tpu_torch.search.eref import (
@@ -2298,17 +2313,26 @@ class Smoke:
             search_references,
             write_ref_names,
         )
+        from palace_tpu_torch.utils.timers import GLOBAL_METRICS
+
+        def phase_a_counts():  # batches, then count_codes' updates and skips at cap
+            got = GLOBAL_METRICS.summary()
+            return (got.get("eref.add_packed", {}).get("calls", 0),
+                    *(got.get(n, {}).get("items", 0)
+                      for n in ("eref.count_updates", "eref.count_at_cap")))
 
         index, fq, n_planted = world
         params = KmerParams(k=EREF_K)
         readers = dict(READERS)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        counts = phase_a_counts()
         kernels.reset_launches()
         t0 = time.perf_counter()
         table = count_reads_into_table([fq], index, params, device=self.dev)
         torch.cuda.synchronize()
         a_s = time.perf_counter() - t0
+        n_batches, updates, at_cap = (b - a for a, b in zip(counts, phase_a_counts()))
         peak_a = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         before = host_parts()
@@ -2325,7 +2349,8 @@ class Smoke:
         total = int(index.lengths.sum())
         readers = {n: READERS[n] - readers[n] for n in READERS}
         say(f"  Phase A: {EREF_READS} reads in {a_s:.3f} s, {EREF_READS / a_s:.1f} reads/s "
-            f"(table of 2^{EREF_K} bytes; FASTQ files read: {readers})")
+            f"(table of 2^{EREF_K} bytes; FASTQ files read: {readers}; {n_batches} batches; "
+            f"count_codes' updates by CAS {updates}, skipped at cap {at_cap})")
         say(f"  Phase B: {total} positions in {n_chunks} chunks, {b_s:.3f} s, "
             f"{total / b_s / 1e6:.2f} Mpos/s; peak memory {peak / 2**30:.2f} GiB; "
             f"launches {launches}")
@@ -2343,10 +2368,14 @@ class Smoke:
         self.records["eref"] = dict(phase_a_s=a_s, phase_b_s=b_s, peak_bytes=peak,
                                     phase_b_peak_bytes=peak_b, host_ms=parts,
                                     n_chunks=n_chunks, launches=launches, n_hits=len(hits),
-                                    readers=readers, ref_names=names.read_bytes())
+                                    readers=readers, ref_names=names.read_bytes(),
+                                    n_batches=n_batches, updates=updates, at_cap=at_cap)
         self.check(launches["scan_chunk"] == n_chunks and n_chunks > 0,
                    f"eref main path launched scan_chunk once a chunk "
                    f"({launches['scan_chunk']} launches, {n_chunks} chunks)")
+        self.check(launches["count_codes"] == n_batches and n_batches > 0,
+                   f"eref main path launched count_codes once a batch "
+                   f"({launches['count_codes']} launches, {n_batches} batches)")
         n_plantable = max(1, EREF_REFS // 50)
         self.check(len(hits) > 0 and all(1 <= h.ref_index <= n_plantable for h in hits),
                    f"{len(hits)} hits, every one a planted reference (ref_index 1..{n_plantable})")
@@ -2367,11 +2396,12 @@ class Smoke:
         FASTQ with it (with the Python reader where it could not be built)
         and found the JAX package's hits; on the same file, the loader's
         batches equal the Python reader's, and Phase A's host seconds split
-        into the reader, ``pack_codes_mask`` and ``add_packed`` (its upload,
-        hashing and table update, on a fresh table, to a synchronize)."""
+        as the card's route takes them: the reader, the staging of each
+        batch in one pinned buffer (a short batch's missing rows set to
+        code 4), and each batch's upload and ``count_codes`` launch, on a
+        fresh table, to a synchronize."""
         from palace_tpu_torch.config import KmerParams
         from palace_tpu_torch.ops.count_table import CountTable
-        from palace_tpu_torch.ops.kmer import pack_codes_mask
         from palace_tpu_torch.search import eref
 
         index, fq, _ = world
@@ -2383,8 +2413,7 @@ class Smoke:
         self.check(rec["n_hits"] == EREF_JAX_HITS,
                    f"with it, {rec['n_hits']} hits, {EREF_JAX_HITS} from the JAX package")
         params = KmerParams(k=EREF_K)
-        maxlen = max(eref.ROW_LEN, EREF_K)
-        maxlen += (-maxlen) % 8
+        maxlen = eref._row_len(params)
         batch = eref.read_batch_size(self.dev)
         t0 = time.perf_counter()
         ratio = eref.compute_downsample_ratio(fq, params.down_sampling_size)
@@ -2399,60 +2428,165 @@ class Smoke:
                    and all(np.array_equal(a, b) for a, b in zip(batches, python)),
                    f"the {route} reader's {len(batches)} batches equal the Python reader's")
         del python
-        t0 = time.perf_counter()
-        packs = [pack_codes_mask(np.pad(c, ((0, batch - c.shape[0]), (0, 0)), constant_values=4))
-                 for c in batches]
-        pack_s = time.perf_counter() - t0
+        staging = torch.empty((batch, maxlen), dtype=torch.uint8,
+                              pin_memory=self.dev.type == "cuda")
+        staged = staging.numpy()
         scratch = CountTable.create(EREF_K, device=self.dev)
+        stage_s = add_s = 0.0
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for packed, mask in packs:
-            scratch.add_packed(torch.from_numpy(packed), torch.from_numpy(mask), index.perm,
-                               EREF_K)
-        torch.cuda.synchronize()
-        add_s = time.perf_counter() - t0
+        for codes in batches:
+            n = codes.shape[0]
+            t0 = time.perf_counter()
+            staged[:n] = codes
+            staged[n:] = 4
+            t1 = time.perf_counter()
+            scratch.add_codes(staging.to(self.dev, non_blocking=True), index.perm, EREF_K)
+            torch.cuda.synchronize()
+            stage_s, add_s = stage_s + t1 - t0, add_s + time.perf_counter() - t1
         del scratch
         reads = sum(c.shape[0] for c in batches)
-        total = ratio_s + reader_s + pack_s + add_s
+        total = ratio_s + reader_s + stage_s + add_s
         say(f"  Phase A's parts, {reads} rows in {len(batches)} batches of {batch}: down-sampling "
             f"ratio {ratio_s:.3f} s, {route} reader {reader_s:.3f} s (the Python reader "
-            f"{python_s:.3f} s), pack_codes_mask {pack_s:.3f} s, add_packed {add_s:.3f} s; "
-            f"{total:.3f} s in all, {reads / total:.1f} reads/s")
+            f"{python_s:.3f} s), staging {stage_s:.3f} s, upload and count_codes to a "
+            f"synchronize {add_s:.3f} s; {total:.3f} s in all, {reads / total:.1f} reads/s")
         self.records["phase_a_native"] = dict(route=route, ratio_s=ratio_s, reader_s=reader_s,
-                                              python_reader_s=python_s, pack_s=pack_s,
-                                              add_packed_s=add_s, batches=len(batches))
+                                              python_reader_s=python_s, staging_s=stage_s,
+                                              add_codes_s=add_s, batches=len(batches))
 
     def phase_a_split(self, world):
-        """Phase A's host and device parts apart: the FASTQ reader and packer
-        on the host clock, one batch's update of a fresh table on the card."""
+        """Phase A's host and device parts apart: the FASTQ reader on the
+        host clock, one full batch's upload and ``count_codes`` on a fresh
+        table on the card."""
         from palace_tpu_torch.config import KmerParams
         from palace_tpu_torch.ops.count_table import CountTable
-        from palace_tpu_torch.ops.kmer import pack_codes_mask
-        from palace_tpu_torch.search.eref import (
-            ROW_LEN,
-            compute_downsample_ratio,
-            read_batch_size,
-            read_code_batches,
-        )
+        from palace_tpu_torch.search import eref
 
         index, fq, _ = world
         params = KmerParams(k=EREF_K)
         t0 = time.perf_counter()
-        ratio = compute_downsample_ratio(fq, params.down_sampling_size)
+        ratio = eref.compute_downsample_ratio(fq, params.down_sampling_size)
         ratio_s = time.perf_counter() - t0
-        batch = read_batch_size(self.dev)
+        batch = eref.read_batch_size(self.dev)
         t0 = time.perf_counter()
-        packs = [pack_codes_mask(c) for c in read_code_batches(fq, batch, ROW_LEN, ratio, EREF_K)]
+        rows = list(eref.read_code_batches(fq, batch, eref._row_len(params), ratio, EREF_K))
         read_s = time.perf_counter() - t0
-        packed, mask = (torch.from_numpy(a).to(self.dev) for a in packs[0])
-        scratch = CountTable.create(EREF_K, device=self.dev)
-        ms = cuda_ms(lambda: scratch.add_packed(packed, mask, index.perm, EREF_K), 3, warmup=1)
-        del scratch
-        say(f"  host: down-sampling ratio {ratio_s:.3f} s, reading and packing {len(packs)} "
-            f"batches of {batch} rows {read_s:.3f} s; card: {ms:.3f} ms a batch update "
-            f"({len(packs) * ms / 1e3:.3f} s for all)")
+        first = torch.from_numpy(rows[0])
+        ms = []
+        for _ in range(3):
+            scratch = CountTable.create(EREF_K, device=self.dev)
+            ms.append(cuda_ms(lambda: scratch.add_codes(first.to(self.dev), index.perm, EREF_K),
+                              1, warmup=0))
+            del scratch
+        ms = float(np.median(ms))
+        say(f"  host: down-sampling ratio {ratio_s:.3f} s, reading {len(rows)} batches of "
+            f"{batch} rows {read_s:.3f} s; card: {ms:.3f} ms a batch's upload and count_codes "
+            f"({len(rows) * ms / 1e3:.3f} s for all)")
         self.records["phase_a_split"] = dict(ratio_s=ratio_s, read_s=read_s, batch_ms=ms,
-                                             batches=len(packs))
+                                             batches=len(rows))
+
+    def count_codes_on_real_batches(self, world):
+        """Phase A's kernel on the eref world's batches as the card stages
+        them (the reader's rows, a short last batch padded with code 4):
+        ``count_codes`` over every batch equal to ``count_codes_plain`` and
+        to the CPU's route (``pack_codes_mask``, ``add_packed``), the whole
+        table byte for byte, slot 0 included; its time a batch on a fresh
+        table by CUDA events, beside the plain version's and the CPU
+        route's (host clock, to a synchronize); its bound, the codes read
+        once and the floor of its table reads, one a nonzero hash at the
+        card's ``RANDOM_READS_PER_S``; on the card, its counters against
+        the nonzero hashes; and what padding the short batch costs: the
+        host's fill, and the whole batch's upload and launch against its
+        rows' alone."""
+        from palace_tpu_torch.config import KmerParams
+        from palace_tpu_torch.ops import kernels
+        from palace_tpu_torch.ops.count_table import CountTable
+        from palace_tpu_torch.ops.kmer import kmer_hashes_masked, pack_codes_mask
+        from palace_tpu_torch.search import eref
+
+        index, fq, _ = world
+        params = KmerParams(k=EREF_K)
+        k, cap, perm = EREF_K, params.least_depth, index.perm
+        maxlen, batch = eref._row_len(params), eref.read_batch_size(self.dev)
+        ratio = eref.compute_downsample_ratio(fq, params.down_sampling_size)
+        rows = list(eref.read_code_batches(fq, batch, maxlen, ratio, k))
+        host = [np.pad(c, ((0, batch - c.shape[0]), (0, 0)), constant_values=4) for c in rows]
+        on_card = [torch.from_numpy(c).to(self.dev) for c in host]
+        nonzero = sum(int((kmer_hashes_masked(c, perm, k) != 0).sum()) for c in on_card)
+
+        def fresh():
+            return torch.zeros(1 << k, dtype=torch.uint8, device=self.dev)
+
+        def count_all(table, fn=kernels.count_codes, counters=None):
+            for c in on_card:
+                fn(table, c, perm, k, cap, *([counters] if counters is not None else []))
+
+        table, plain = fresh(), fresh()
+        counters = torch.zeros(2, dtype=torch.int64, device=self.dev)
+        count_all(table, counters=counters)
+        count_all(plain, kernels.count_codes_plain)
+        same_plain = torch.equal(table, plain)
+        del plain
+        other = CountTable.create(k, cap, device=self.dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in host:
+            packed, mask = pack_codes_mask(c)
+            other.add_packed(torch.from_numpy(packed), torch.from_numpy(mask), perm, k)
+        torch.cuda.synchronize()
+        other_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+        same_other = torch.equal(table, other.table)
+        slot0 = int(table[0])
+        del other, table
+        self.check(same_plain and same_other,
+                   f"count_codes on the reader's {len(rows)} batches of {batch} rows of {maxlen} "
+                   f"(the last {rows[-1].shape[0]} rows and its pad): the whole table equal to "
+                   f"count_codes_plain's ({same_plain}) and to pack_codes_mask + add_packed's "
+                   f"({same_other}), slot 0 ({slot0}) included")
+        updates, at_cap = counters.tolist()
+        if self.dev.type == "cuda":
+            self.check(updates + at_cap == nonzero,
+                       f"count_codes' counters: {updates} updates by CAS and {at_cap} skipped "
+                       f"at cap, {nonzero} nonzero hashes")
+
+        ms = []
+        for _ in range(3):
+            scratch = fresh()
+            ms.append(cuda_ms(lambda: count_all(scratch), 1, warmup=0) / len(on_card))
+            del scratch
+        scratch = fresh()
+        plain_ms = cuda_ms(lambda: count_all(scratch, kernels.count_codes_plain), 1,
+                           warmup=0) / len(on_card)
+        code_bytes = sum(c.numel() for c in on_card)
+        b = max((code_bytes / HBM_BYTES_PER_S * 1e3 / len(on_card), "bytes"),
+                (nonzero / RANDOM_READS_PER_S * 1e3 / len(on_card), "table reads"))
+
+        # the short batch's pad: the host's fill, and its upload and launch whole or not
+        n = rows[-1].shape[0]
+        staging = torch.empty((batch, maxlen), dtype=torch.uint8,
+                              pin_memory=self.dev.type == "cuda")
+        staging.numpy()[:n] = rows[-1]
+        fills = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            staging.numpy()[n:] = 4
+            fills.append((time.perf_counter() - t0) * 1e3)
+        pad = dict(rows=n, fill_ms=float(np.median(fills)))
+        for name, part in (("whole_ms", staging), ("rows_ms", staging[:n])):
+            pad[name] = cuda_ms(lambda: kernels.count_codes(
+                scratch, part.to(self.dev, non_blocking=True), perm, k, cap), 5)
+        del scratch
+        self.records["count_codes"] = dict(
+            dtype="uint8 codes in, uint8 counts", max_abs_err=0.0 if same_plain else float("inf"),
+            ms=float(np.median(ms)), ms_runs=ms, plain_ms=plain_ms, bound=b, library_ms=None,
+            other_route_ms=other_ms, batches=len(rows), nonzero=nonzero, updates=updates,
+            at_cap=at_cap, pad=pad)
+        say(f"  count_codes: kernel {', '.join(f'{x:.4f}' for x in ms)} ms a batch (fresh table), "
+            f"bound {b[0]:.4f} ms ({b[1]}), plain {plain_ms:.4f} ms, pack_codes_mask + "
+            f"add_packed {other_ms:.3f} ms on the host clock; library: none")
+        say(f"  the short batch of {n} rows: its pad filled on the host in {pad['fill_ms']:.4f} "
+            f"ms; upload and count_codes {pad['whole_ms']:.4f} ms padded, {pad['rows_ms']:.4f} "
+            f"ms its rows alone")
 
     def scan_chunk_on_real_chunks(self, world, table):
         """K4 fused on real Phase B chunks: ``scan_chunk`` equal to its plain
@@ -3830,6 +3964,8 @@ def run_eref_phases(smoke: Smoke, keep: Path | None = None):
             smoke.phase("K4 at the main path's shapes", smoke.k4_at_main_shapes, world, table)
             smoke.phase("window and hash names on the card", smoke.window_names, world, table)
             smoke.phase("per-reference scan", smoke.per_reference_scan, world, table, hits)
+            smoke.phase("count_codes on Phase A's batches", smoke.count_codes_on_real_batches,
+                        world)
             smoke.phase("Phase A with the native loader", smoke.phase_a_native, world)
             smoke.phase("where Phase A's time goes", smoke.phase_a_split, world)
             smoke.phase("where Phase B's time goes", smoke.phase_b_profile, world, table)
@@ -3889,7 +4025,8 @@ def main() -> int:
                     good_windows=smoke.records["per_reference"]["launches"]["good_windows"],
                     scan_hits=smoke.records["eref_mesh"]["launches"]["scan_hits"],
                     window_hits=smoke.records["eref_mesh"]["launches"]["window_hits"],
-                    hit_filter=smoke.records["eref_mesh"]["launches"]["hit_filter"])
+                    hit_filter=smoke.records["eref_mesh"]["launches"]["hit_filter"],
+                    count_codes=smoke.records["eref"]["launches"]["count_codes"])
     # and the float32 routes of K2 and K3, the pipeline's default dtype, in the
     # float32 slice; K1's padded-codes entry in its phase
     f32 = {f"{k}/float32": KERNELS[k] for k in ("sage_rounds", "conv_head")}

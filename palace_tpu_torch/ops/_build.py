@@ -53,6 +53,8 @@ KERNELS = {
     "hit_filter": ("good_windows.cu", "palace_hit_filter", [_P, _L, _P, _I, _I, _P]),
     "window_hits": ("good_windows.cu", "palace_window_hits",
                     [_P, _P, _I, _I, _I, _I, _I, _P]),
+    "count_codes": ("count_codes.cu", "palace_count_codes",
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -8,7 +8,10 @@ exactly: ``torch.unique`` gives each distinct hash of the batch and its
 multiplicity, then one gather, a clamp and one scatter write
 ``min(old + multiplicity, cap)``.  Invalid k-mers go to slot 0, the
 reference's permanent-miss slot (extract_ref.cpp:861-866), which counts
-like any other slot but always reads 0 on lookup.
+like any other slot but always reads 0 on lookup.  On a CUDA card a batch
+of the reader's codes can instead be counted by one hand-written kernel
+(``add_codes``, ``ops.kernels.count_codes``): the same counts, with no
+host packing, no hash in device memory and no read-back.
 
 This is the JAX package's ``CountTable`` without its TPU layouts (the
 2-D ``(2^(k-16), 2^16)`` table and the nibble-packed words, both there
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from palace_tpu_torch.device import resolve_device
+from palace_tpu_torch.ops import kernels
 from palace_tpu_torch.ops.kmer import kmer_hashes, unpack_codes_mask
 from palace_tpu_torch.parallel.collectives import all_reduce_, gather_ragged
 from palace_tpu_torch.parallel.mesh import Mesh
@@ -36,8 +40,8 @@ from palace_tpu_torch.parallel.mesh import Mesh
 class CountTable:
     """Single-device saturating counter over 2^k hash slots.
 
-    Updates are IN PLACE (the JAX table is updated by value): ``add_kmers``
-    and ``add_packed`` change ``table`` and return ``self``."""
+    Updates are IN PLACE (the JAX table is updated by value): ``add_kmers``,
+    ``add_packed`` and ``add_codes`` change ``table`` and return ``self``."""
 
     table: torch.Tensor  # (2^k,) uint8
     k: int
@@ -74,6 +78,17 @@ class CountTable:
                                   torch.as_tensor(mask, device=self.device))
         hashes, valid = kmer_hashes(codes, perm, kmer_k)
         return self.add_kmers(hashes, valid)
+
+    def add_codes(self, codes: torch.Tensor, perm: np.ndarray, kmer_k: int,
+                  counters: Optional[torch.Tensor] = None) -> "CountTable":
+        """Count every k-mer of a batch of (B, L) uint8 base codes (0-3, 4
+        invalid or pad) on the table's device: one launch of
+        ``kernels.count_codes`` on the card, its plain version on the CPU.
+        The counts equal ``add_packed``'s of the same rows packed;
+        ``counters`` as ``kernels.count_codes`` takes them."""
+        kernels.count_codes(self.table, torch.as_tensor(codes, device=self.device), perm,
+                            kmer_k, self.cap, counters)
+        return self
 
     def lookup(self, hashes: torch.Tensor) -> torch.Tensor:
         """Counts per hash (uint8, the hashes' shape); slot 0 always reads 0

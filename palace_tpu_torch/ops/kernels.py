@@ -2,7 +2,9 @@
 scorer's K1-K3 (K1 also at the Pallas kernel's padded-codes interface,
 ``transition_counts``) and the eref search's K4 (``good_windows``;
 ``scan_chunk``, which fuses it with the hashing and lookup before it; and,
-against a table split over a mesh, ``scan_hits`` and ``window_hits``).
+against a table split over a mesh, ``scan_hits`` and ``window_hits``), and
+eref Phase A's count of a batch of read codes into the table
+(``count_codes``), which replaces no Pallas kernel.
 
 Counterpart of ``palace_tpu/ops/pallas_kernels.py``.  Every wrapper
 takes the plain version for tensors on the CPU, and for CUDA tensors
@@ -917,3 +919,89 @@ def window_hits(planes: torch.Tensor, window: int, one_min: int,
     LAUNCHES["window_hits"] += 1
     _build.check("window_hits", err)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase A: a batch of the reader's codes counted into the table in one kernel
+# ---------------------------------------------------------------------------
+
+def count_codes_plain(table: torch.Tensor, codes: torch.Tensor, perm: np.ndarray, k: int,
+                      cap: int = 3) -> torch.Tensor:
+    """Plain version of ``count_codes``: ``kmer.kmer_hashes`` of the codes
+    with the invalid k-mers' hashes at slot 0, then
+    ``count_table.CountTable.add_kmers``' update (``torch.unique``'s
+    distinct hashes and multiplicities, ``min(old + multiplicity, cap)``
+    gathered and scattered)."""
+    slots, mult = torch.unique(kmer_hashes_masked(codes, perm, k).reshape(-1),
+                               return_counts=True)
+    table[slots] = torch.clamp(table[slots].to(torch.int64) + mult, max=cap).to(torch.uint8)
+    return table
+
+
+def count_codes(table: torch.Tensor, codes: torch.Tensor, perm: np.ndarray, k: int,
+                cap: int = 3, counters: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Count every k-mer of a batch of read codes into a saturating count
+    table, in place.
+
+    table (2^k,) uint8 counts; codes (B, L) uint8, the rows
+    ``search.eref.read_code_batches`` yields (0-3 a base, 4 or more invalid
+    or pad); perm (k, 3) the coder permutation, on the host; ``counters``,
+    None or (2,) int64 on the card, gets the card's updates issued as a CAS
+    added to [0] and those skipped at cap to [1] (how they split depends on
+    the order the threads run, so the plain version leaves them) → the
+    table, each of
+    the k-mers' three canonical hashes (``kmer.kmer_hashes``) counted once,
+    ``min(old + multiplicity, cap)``; a k-mer with an invalid base counts
+    at slot 0.
+
+    Replaces, on one device, the host's ``kmer.pack_codes_mask`` and
+    ``count_table.CountTable.add_packed``'s unpack, hashing (192 tensor
+    launches at k = 32) and update through ``torch.unique``, whose output
+    size it reads back (a synchronize a batch); no TPU kernel computes it.
+    Bound on the H100: bytes, 1 B a code read once (5.2 MB a batch of
+    32,768 rows of 160), the table touched only at the updates; the floor
+    of that traffic is a 32-byte sector read for each nonzero hash and a CAS
+    for each below cap, against the card's 30.6 G/s for 1-byte reads at
+    random addresses of a 4 GiB table (``scan_hits``' measure): 0.41 ms for
+    a batch's 12.7 M hashes.  Design (``csrc/count_codes.cu``): a block
+    takes rows, makes their bit-planes in shared memory with a warp's
+    ballots, hashes 8 k-mers a thread as ``scan_chunk`` does and reads the
+    aligned 32-bit words of their 24 slots together; a slot at cap is
+    skipped (counts only grow, so that is exact), the others take an
+    ``atomicCAS`` of the word with the byte one higher, retried from the
+    returned word where another thread changed it; a block's hashes of 0
+    are summed and added to slot 0 once.  Serial saturating increments
+    give ``min(old + multiplicity, cap)`` in any order, so the table equals
+    the plain version's byte for byte.  One launch a call, none for rows
+    shorter than k; nothing is read back.
+    """
+    cuda = _same_device("count_codes", table, codes)
+    _require(table.dtype == torch.uint8 and table.dim() == 1 and table.is_contiguous(),
+             "count_codes: the table must be contiguous uint8 (2^k,)")
+    _require(codes.dtype == torch.uint8 and codes.dim() == 2,
+             "count_codes: codes must be uint8 (B, L)")
+    _require(2 <= k <= 32 and np.shape(perm) == (k, 3),
+             "count_codes: k must be in [2, 32] and perm (k, 3)")
+    _require(table.numel() == 1 << k, "count_codes: the table must hold 2^k bytes")
+    _require(0 <= cap <= 255, "count_codes: cap must be in [0, 255]")
+    B, L = codes.shape
+    _require(L <= 1 << 16, "count_codes: at most 2^16 codes a row")
+    if counters is not None:
+        _require(counters.dtype == torch.int64 and counters.shape == (2,)
+                 and counters.is_contiguous() and counters.device == table.device,
+                 "count_codes: counters must be contiguous int64 (2,) on the table's device")
+    if not cuda:
+        return count_codes_plain(table, codes, perm, k, cap)
+    if L < k or B == 0:
+        return table
+    codes = codes.contiguous()
+    masks = _coder_masks(perm, k)  # referenced until the call returns
+    # the launch runs in the calling thread's current context: the table's
+    # card's, which need not be the current device (Phase A on "cuda:1")
+    with torch.cuda.device(table.device):
+        err = _build.entry("count_codes")(
+            codes.data_ptr(), table.data_ptr(), ctypes.addressof(masks),
+            0 if counters is None else counters.data_ptr(), B, L, k, cap, _stream(codes))
+    LAUNCHES["count_codes"] += 1
+    _build.check("count_codes", err)
+    return table

@@ -7,8 +7,13 @@ genomes are present in the read set.
 Phase A (extract_ref.cpp read_fastq :905-1008): reads, down-sampled to
 ~2 Gbp, fill a saturating count table over the canonical 3-coder k-mer
 hashes.  The native loader (``io/fastq_native.py``) parses the FASTQ
-into fixed-shape code batches on the host, which are packed there and
-hashed and counted on the device (``ops.count_table``).
+into fixed-shape code batches on the host.  On a CUDA card (one device)
+each batch goes to the card as it is and one launch of
+``kernels.count_codes`` hashes and counts it (``CountTable.add_codes``),
+with no read-back until Phase A's end, so the card's work overlaps the
+reader's next batch; elsewhere (the CPU, a mesh) a batch is packed on the
+host (``kmer.pack_codes_mask``) and unpacked, hashed and counted by
+``add_packed`` (``ops.count_table``).
 
 Phase B (read_index :813-903 + slide_window :504-624): every reference
 position's 3 hashes are looked up; a 500 bp sliding window marks good
@@ -35,7 +40,14 @@ expected coverage.
 Spans (``utils.timers.StageTimer``): ``eref.run_search`` holds a call;
 Phase A is ``eref.table_create``, ``eref.downsample_ratio`` and
 ``eref.count_reads``, which holds ``eref.read`` (each batch from the
-reader), ``eref.pack``, ``eref.add_packed`` and ``eref.count_sync``;
+reader), ``eref.pack`` (the host's preparation of a batch: on the card
+its copy into a reused pinned buffer, whose rows past a short batch's are
+set to the pad code 4; elsewhere the pad and ``pack_codes_mask``),
+``eref.add_packed`` (on the card the batch's upload and the launch;
+elsewhere the uploads, the unpack and hash launches and
+``torch.unique``'s wait) and ``eref.count_sync`` (the one
+wait for the card, and the read-back of ``count_codes``' counters, which go
+into ``GLOBAL_METRICS`` as ``eref.count_updates`` and ``eref.count_at_cap``);
 Phase B is ``eref.scan_refs``, which holds ``eref.plan``,
 ``eref.upload``, ``eref.hit_filter`` (sharded), and a chunk at a time
 ``eref.scan`` (with the wrapper's ``eref.scan_check``),
@@ -191,11 +203,19 @@ def _record_collectives(stage: str, before: Tuple[float, int]) -> None:
         GLOBAL_METRICS.record(stage, secs - before[0], items=nbytes - before[1], unit="bytes")
 
 
-def _count_sync(table) -> None:
-    """The end of Phase A: the card's updates done."""
+def _count_sync(table, counters: Optional[torch.Tensor] = None) -> None:
+    """The end of Phase A: the card's updates done, and ``count_codes``'
+    counters, where there are any, read back into ``GLOBAL_METRICS``:
+    ``eref.count_updates`` (the updates issued as a CAS) and
+    ``eref.count_at_cap`` (those skipped at cap)."""
     with StageTimer("eref.count_sync"):
         if table.device.type == "cuda":
             torch.cuda.synchronize(table.device)
+        if counters is not None:
+            updates, at_cap = counters.tolist()
+    if counters is not None:
+        GLOBAL_METRICS.record("eref.count_updates", 0.0, updates, unit="updates")
+        GLOBAL_METRICS.record("eref.count_at_cap", 0.0, at_cap, unit="hashes")
 
 
 def _row_len(params: KmerParams) -> int:
@@ -215,12 +235,18 @@ def count_reads_into_table(
     the table is a ``ShardedCountTable`` on ``mesh.device`` (``device`` is
     not read): every rank reads the same files, the batch rounds up to a
     multiple of the mesh's ranks, and each rank counts its block of every
-    batch."""
+    batch.  On one CUDA card each batch is counted by one launch of
+    ``kernels.count_codes`` (``CountTable.add_codes``) from the reader's
+    codes; on the CPU and under a mesh it is packed on the host and counted
+    by ``add_packed``.  The tables are the same."""
     with StageTimer("eref.table_create"):
         if mesh is None:
             table = CountTable.create(params.k, params.least_depth, device=device)
         else:
             table = ShardedCountTable.create(mesh, params.k, params.least_depth)
+    on_card = mesh is None and table.device.type == "cuda"
+    counters = torch.zeros(2, dtype=torch.int64, device=table.device) if on_card else None
+    uploaded = torch.cuda.Event() if on_card else None  # the last upload from `staging`
     ratio = compute_downsample_ratio(fastq_files[0], params.down_sampling_size)
     logger.info("Down-sampling ratio is %d%%.", min(ratio, 100))
     before = _timing()
@@ -229,6 +255,9 @@ def count_reads_into_table(
         batch = read_batch_size(table.device)
         if mesh is not None:
             batch = -(-batch // mesh.size) * mesh.size
+        if on_card:
+            staging = torch.empty((batch, maxlen), dtype=torch.uint8, pin_memory=True)
+            staged = staging.numpy()
         # eref.pack's items are the reader's rows, eref.add_packed's the pad rows too.
         # A batch's arrays stay alive until the next batch's replace them: freed
         # before the next read, they let glibc trim the heap and fault it back in
@@ -237,6 +266,25 @@ def count_reads_into_table(
         for fq in fastq_files:
             for codes in read_code_batches(fq, batch, maxlen, ratio, params.k):
                 span.items += codes.shape[0]
+                if on_card:
+                    # staged in one pinned buffer once the last upload has read it (a
+                    # fresh pinned block a batch cost 0.43 ms to allocate and 0.81 ms to
+                    # fill, on the host of an H100), by NumPy on this thread: torch's
+                    # copy_ splits it over the intra-op threads, and on that shared host
+                    # took 0.26-3.2 ms a batch (medians of two runs) against 0.61-0.79;
+                    # a short batch's missing rows are code 4, the pad of the other route
+                    n = codes.shape[0]
+                    with StageTimer("eref.pack", n, unit="rows"):
+                        uploaded.synchronize()
+                        staged[:n] = codes
+                        staged[n:] = 4
+                    with StageTimer("eref.add_packed", batch, unit="rows"):
+                        # the upload and the launch run on the table's device's stream,
+                        # which need not be the current device's
+                        dev_codes = staging.to(table.device, non_blocking=True)
+                        uploaded.record(torch.cuda.current_stream(table.device))
+                        table.add_codes(dev_codes, index.perm, params.k, counters)
+                    continue
                 with StageTimer("eref.pack", codes.shape[0], unit="rows"):
                     if codes.shape[0] < batch:
                         # full batches, as the JAX package pads for one jit shape:
@@ -247,7 +295,7 @@ def count_reads_into_table(
                 with StageTimer("eref.add_packed", batch, unit="rows"):
                     table.add_packed(torch.from_numpy(packed), torch.from_numpy(mask),
                                      index.perm, params.k)
-        _count_sync(table)
+        _count_sync(table, counters)
     _record_collectives("eref.count_reads.collectives", before)
     return table
 

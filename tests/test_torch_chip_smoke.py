@@ -219,9 +219,10 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
     assert failures[:6] == [f"main path{dt} launched {name} (0 times)"
                             for dt in ("", " in float32")
                             for name in chip_smoke.SCORING_KERNELS]
-    assert len(failures) == 8
+    assert len(failures) == 9
     assert failures[6].startswith("eref main path launched scan_chunk once a chunk (0 ")
-    assert failures[7].startswith("per-reference path launched good_windows once a "
+    assert failures[7].startswith("eref main path launched count_codes once a batch (0 ")
+    assert failures[8].startswith("per-reference path launched good_windows once a "
                                   "reference (0 ")
     # phases 6 and 10: each call's launch checks, and no other check, fail
     n_chunks = smoke.records["good_windows"]["chunks"]
@@ -248,8 +249,11 @@ def test_phases_run_on_the_cpu_at_a_small_size(monkeypatch, tmp_path):
     assert smoke.records["per_reference"]["n_hits"] == 1
     assert smoke.records["scan_chunk"]["max_abs_err"] == 0
     assert smoke.records["scan_chunk"]["all_chunks"] >= smoke.records["scan_chunk"]["chunks"] >= 2
+    counted = smoke.records["count_codes"]
+    assert counted["max_abs_err"] == 0 and counted["batches"] == smoke.records["eref"]["n_batches"]
+    assert counted["bound"][1] == "table reads" and counted["pad"]["rows"] == 3000
     assert set(chip_smoke.KERNELS) == set(chip_smoke.SCORING_KERNELS) | {
-        "good_windows", "scan_chunk", "scan_hits", "window_hits", "hit_filter"}
+        "good_windows", "scan_chunk", "scan_hits", "window_hits", "hit_filter", "count_codes"}
 
 
 def test_graph_phases_run_on_the_cpu_at_a_small_size(monkeypatch):

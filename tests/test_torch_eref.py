@@ -1,7 +1,9 @@
 """The port's eref stage against the JAX package's on the CPU: the same
 worlds give byte-identical ``ref_names.txt``; the index cache is shared
-both ways; the read batches are equal; the CLI writes the same file; and
-the entry points refuse to run without a card unless asked for the CPU."""
+both ways; the read batches are equal; the CLI writes the same file;
+the entry points refuse to run without a card unless asked for the CPU;
+and (``cuda``) Phase A's kernel route on the card gives the CPU's table
+and report."""
 import numpy as np
 import pytest
 import torch
@@ -18,9 +20,11 @@ from palace_tpu.search import index as jindex
 from palace_tpu.search import refs as jrefs
 from palace_tpu_torch import cli
 from palace_tpu_torch.config import KmerParams
+from palace_tpu_torch.ops import kernels
 from palace_tpu_torch.ops.count_table import CountTable
 from palace_tpu_torch.ops.kmer import kmer_hashes
 from palace_tpu_torch.search import eref, index, refs
+from palace_tpu_torch.utils.timers import GLOBAL_METRICS
 from _torch_jax_native import jax_native_dir  # noqa: F401  (JAX's native build, private)
 
 
@@ -217,3 +221,66 @@ def test_entry_points_raise_without_a_card(mini_world, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["eref", str(fq1), str(fq2), str(db), str(tmp_path / "y.txt"), "--k", "16"])
     assert not (tmp_path / "x.txt").exists() and not (tmp_path / "y.txt").exists()
+
+
+@pytest.mark.cuda
+def test_card_run_search_equals_the_cpu(mini_world, tmp_path):
+    """``run_search`` on the card, whose Phase A counts each batch with one
+    ``count_codes`` launch from the reader's codes, gives the same count
+    table and ``ref_names.txt`` as on the CPU, where Phase A packs and
+    counts through ``add_packed``, and as the JAX package; its counters
+    reach ``GLOBAL_METRICS``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run pytest -m cuda tests/test_torch_eref.py on the card")
+    db, fq1, fq2 = mini_world
+    k = 16
+    idx = index.build_index(db, k=k, save=False)
+    params = KmerParams(k=k, window=100)
+    tables = [eref.count_reads_into_table([fq1, fq2], idx, params, device=d).table.cpu()
+              for d in ("cpu", "cuda")]
+    assert torch.equal(tables[0], tables[1]) and int(tables[0][0]) == 3
+    jidx = jindex.build_index(db, k=k, save=False)
+    jparams = JKmerParams(k=k, window=100)
+    jtable = jeref.count_reads_into_table([fq1, fq2], jidx, jparams)
+    np.testing.assert_array_equal(tables[1].numpy(), np.asarray(jtable.table).reshape(-1))
+    jeref.run_search(fq1, fq2, jidx, jparams, tmp_path / "jax.txt")
+    hits = {}
+    for d in ("cpu", "cuda"):
+        before = kernels.LAUNCHES["count_codes"]
+        counted = GLOBAL_METRICS.summary().get("eref.count_updates", {}).get("calls", 0)
+        hits[d] = eref.run_search(fq1, fq2, idx, params, tmp_path / f"{d}.txt", device=d)
+        assert kernels.LAUNCHES["count_codes"] - before == (2 if d == "cuda" else 0)
+        assert GLOBAL_METRICS.summary().get("eref.count_updates", {}).get("calls", 0) \
+            - counted == (d == "cuda")
+    assert [h.ref_index for h in hits["cuda"]] == [2]
+    assert (tmp_path / "cuda.txt").read_bytes() == (tmp_path / "cpu.txt").read_bytes() \
+        == (tmp_path / "jax.txt").read_bytes()
+    summary = GLOBAL_METRICS.summary()
+    assert summary["eref.count_updates"]["items"] > 0 and "eref.count_at_cap" in summary
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device", ["cuda", "cuda:1"])
+def test_card_phase_a_in_many_batches_equals_the_cpu(mini_world, monkeypatch, device):
+    """Phase A on the card in batches of 128 reads, so that its pinned
+    staging buffer is refilled 14 times and each file's last batch is
+    short and padded there: the CPU's table, slot 0 included.  On
+    ``cuda:1``, with the current device 0, the upload and the launch run on
+    the second card's stream, and each refill waits for that stream's
+    upload."""
+    if torch.cuda.device_count() < (2 if device == "cuda:1" else 1):
+        pytest.skip(f"needs a CUDA device {device}: run pytest -m cuda tests/test_torch_eref.py "
+                    f"on a machine with that many cards")
+    db, fq1, fq2 = mini_world
+    k = 16
+    idx = index.build_index(db, k=k, save=False)
+    params = KmerParams(k=k, window=100)
+    monkeypatch.setattr(eref, "READ_BATCH", 128)
+    monkeypatch.setattr(eref, "CUDA_READ_BATCH", 128)
+    want = eref.count_reads_into_table([fq1, fq2], idx, params, device="cpu").table
+    torch.cuda.set_device(0)
+    before = kernels.LAUNCHES["count_codes"]
+    got = eref.count_reads_into_table([fq1, fq2], idx, params, device=device).table
+    assert got.device == torch.device(device if device != "cuda" else "cuda:0")
+    assert kernels.LAUNCHES["count_codes"] - before == 14
+    assert torch.equal(got.cpu(), want)
